@@ -10,13 +10,13 @@ single-pair ``run_one`` (:394-407) and ``iteration_counts`` (:412-414).
 (include/lambda_lanczos/exponentiator.hpp:24-211): ``run(a, input)`` computes
 ``exp(a*A) @ input`` (:87-173), ``taylor_run`` the Taylor fallback (:175-210).
 
-Differences are TPU-native by design: the matvec can be any
+Differences by design: the matvec can be any
 :class:`~lanczos_tpu.ops.operators.LinearOperator` (dense / COO / CSR / BSR /
 DIA / matrix-free / sharded) instead of a ``std::function`` over
 ``std::vector``; vectors are jnp arrays that may carry a mesh sharding; and
 the execution engine is selectable — hybrid (per-iteration host solve,
 reference semantics), fused (whole Krylov build in one ``lax.while_loop``),
-block (MXU block matvecs), thick restart (TRLan bounded memory).  Engine
+block (block matvecs), thick restart (TRLan bounded memory).  Engine
 dispatch for every path (including :class:`CheckpointedRun`) goes through
 ``_iterate_factory`` and the shared ``deflation_driver``.
 """
@@ -79,7 +79,7 @@ class LambdaLanczos:
         # Initial Krylov-buffer capacity; doubles on demand (the analogue of
         # the reference's initial_vector_size, lambda_lanczos.hpp:181).
         self.initial_buffer_size: int = 64
-        # Block Lanczos: >1 runs the block engine (MXU block matvecs; a
+        # Block Lanczos: >1 runs the block engine (block matvecs; a
         # block of size b captures multiplicity <= b in one restart).
         self.block_size: int = 1
         # Warm restarts when max_iteration caps the basis below convergence
@@ -147,7 +147,7 @@ class LambdaLanczos:
             return self.mode
         import jax
 
-        return "fused" if jax.default_backend() in ("tpu", "gpu") else "hybrid"
+        return "hybrid" if jax.default_backend() == "cpu" else "fused"
 
     def _iterate_factory(self, cfg):
         """(iterate_one, v0_rows, use_warm_restarts) for the configured
@@ -263,7 +263,7 @@ class LambdaLanczos:
                 "moving — results may be budget-limited, not eps-converged; "
                 "check residuals() or raise the budgets"
             )
-            # Engine-economics hint (measured, BASELINE.md flagship A/B):
+            # Engine-economics hint:
             # thick-restart convergence DEPTH per cycle is rows/block_size,
             # so on targets that are distinct at the requested eps the block
             # engine pays block_size x the row budget for equal depth and
@@ -438,8 +438,7 @@ class Exponentiator:
 
     def run_split(self, a, v_re, v_im):
         """exp(a*A) (v_re + i v_im) for a REAL operator with all device work
-        in real arithmetic — the TPU-native complex path (complex dtypes are
-        unsupported/broken on some TPU runtimes).  Returns
+        in real arithmetic (split complex: two real Krylov builds).  Returns
         ((out_re, out_im), (iters_re, iters_im)).
 
         On a HermitianSplitOperator, (v_re, v_im) is the ORIGINAL n-dim
@@ -570,7 +569,7 @@ class Exponentiator:
 
     def run_batch(self, a, input_batch):
         """Apply exp(a*A) to a (B, n) batch of states in one vmapped device
-        program (TPU-first extension; per-state iteration counts match
+        program (no reference counterpart; per-state iteration counts match
         single-state runs).  Returns (outputs (B, n), iterations (B,)).
 
         On a HermitianSplitOperator the batch rows are the ORIGINAL n-dim

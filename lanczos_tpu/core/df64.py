@@ -1,18 +1,20 @@
 """Double-float ("df64") arithmetic: ~2x-precision reductions in f32 storage.
 
-TPUs are float32-native (float64 exists but is software-emulated and slow on
-the vector path; complex128 is unsupported).  The reference library reaches
+The fast path stores Krylov vectors in float32.  The reference library reaches
 1e-12..1e-14 eigenvalue tolerances in hardware double precision
 (reference: include/lambda_lanczos/lambda_lanczos.hpp:150,
-test/lambda_lanczos_test.cpp:290).  To close part of that gap without paying
-for emulated f64 on the hot path, the dot products that feed the Lanczos
+test/lambda_lanczos_test.cpp:290).  To close part of that gap while keeping f32
+storage on the hot path, the dot products that feed the Lanczos
 recurrence (alpha, beta, reorthogonalization coefficients — reference:
 include/lambda_lanczos/util/linear_algebra.hpp:29-60) can be evaluated in
 error-free-transformation double-float arithmetic: every value is an unevaluated
 sum ``hi + lo`` of two f32, giving ~48 bits of effective mantissa.
 
-Classic algorithms (Dekker 1971, Knuth TwoSum) — no FMA assumption, so they
-are exact on the TPU VPU as long as ops round to nearest, which XLA f32 does.
+Classic algorithms (Dekker 1971, Knuth TwoSum), exact as long as each op
+rounds to nearest and nothing contracts a multiply and an add into an FMA
+(which would break Dekker's split silently).  XLA:CPU does not contract;
+on the H100 ``chip_smoke.py`` phase ``df64`` checks exactness on 2^20 pairs
+every run.
 All functions are elementwise/jit-friendly and work under vmap/shard_map.
 """
 
@@ -176,10 +178,10 @@ def df_matmul(a_df, b_df):
     """(l, m) @ (m, n) matmul where BOTH factors are df pairs; returns the
     (hi, lo) product with every dot accumulated in df arithmetic.
 
-    MXU matmuls cannot do this: the systolic accumulation rounds each partial
+    An f32 matmul cannot do this: its accumulation rounds each partial
     sum to f32 (precision=HIGHEST fixes the products, not the adds), which is
     exactly the error a df-carried Krylov basis must not absorb.  This runs
-    as a ``lax.scan`` over the contraction dim on the VPU — one rank-1 df
+    as a ``lax.scan`` over the contraction dim, elementwise — one rank-1 df
     update per step — so it is for SMALL m at boundaries (e.g. the thick-
     restart Ritz rotation, m = basis capacity <= ~256), never for hot loops.
     """

@@ -1,20 +1,20 @@
-"""Vector-kernel layer (the reference's BLAS-1 layer, re-thought for TPU).
+"""Vector-kernel layer (the reference's BLAS-1 layer, re-thought for accelerators).
 
 Reference counterpart: include/lambda_lanczos/util/linear_algebra.hpp —
 ``inner_prod`` (:29-51, conjugated), ``norm`` (:56-60), ``scalar_mul``/
 ``normalize`` (:65-80), ``m_norm`` (:82-125), ``schmidt_orth`` (:132-144).
 
-TPU-native redesign decisions:
+Design decisions:
 
 * Everything is a pure jittable function on jnp arrays.  When the arrays
   carry a ``NamedSharding`` over a device mesh, XLA GSPMD turns each global
-  reduction into a local partial reduction + ``psum`` over ICI automatically;
+  reduction into a local partial reduction + ``psum`` over the mesh;
   under ``shard_map`` the explicit-collective variants in
   :mod:`lanczos_tpu.parallel` are used instead.
 * Re-orthogonalization is *not* the reference's sequential modified
   Gram-Schmidt loop (linear_algebra.hpp:132-144, O(k) dependent matvec
   passes).  It is two passes of *classical* Gram-Schmidt expressed as two
-  (m, n) x (n,) matmuls (CGS2), which runs on the MXU and has the same or
+  (m, n) x (n,) matmuls (CGS2), which streams the basis and has the same or
   better orthogonality guarantees than one MGS pass.
 * Optional double-float precision for the scalar reductions (alpha/beta) via
   :mod:`lanczos_tpu.core.df64` so the f32 fast path keeps ~1e-10-level dot
@@ -31,10 +31,10 @@ from jax import lax
 from .types import is_complex_dtype
 from . import df64
 
-# Projection/recombination matmuls are precision-critical (orthogonality,
-# Ritz vectors): force full-f32 MXU passes — on TPU the DEFAULT matmul
-# precision may use bf16 passes (see CLAUDE.md; it corrupted the Sturm
-# minors).  These ops are bandwidth-bound, so HIGHEST is ~free.
+# Every f32 contraction is precision-critical (orthogonality, Ritz vectors,
+# alpha/beta): force full f32 — an accelerator's DEFAULT f32 matmul may run
+# reduced-precision passes (TF32 on the GPU keeps ~3 decimal digits).  These
+# ops are bandwidth-bound, so HIGHEST costs nothing measurable.
 _PREC = lax.Precision.HIGHEST
 
 __all__ = [
@@ -61,7 +61,7 @@ def inner_prod(v, w):
     ``util::inner_prod`` (linear_algebra.hpp:29-51), which exists precisely
     because ``std::inner_product`` does not conjugate.
     """
-    return jnp.vdot(v, w)
+    return jnp.vdot(v, w, precision=_PREC)
 
 
 def inner_prod_df(v, w):
@@ -112,22 +112,9 @@ def normalize(v):
 
 
 def _project_coeffs(basis, v, row_mask=None):
-    """c_k = <u_k, v> for every row u_k of ``basis``.
-
-    On TPU this is deliberately NOT a matmul: an (m, n) @ (n,) matvec has
-    output width 1 and wastes 127/128 MXU lanes, and precision=HIGHEST
-    multiplies the pass count on top.  A VPU multiply-reduce streams the
-    basis at memory speed with exact f32 arithmetic instead — measured
-    1.30x faster for the full CGS pass at (96, 2^20) with identical error
-    (experiments/cgs_formulation_bench.py: 0.895 vs 1.164 ms/pass).  The
-    (m,) @ (m, n) *update* stays an MXU matmul (n-wide output uses the
-    full array).
-    """
+    """c_k = <u_k, v> for every row u_k of ``basis`` (masked by ``row_mask``)."""
     b = jnp.conj(basis) if is_complex_dtype(basis.dtype) else basis
-    if jax.default_backend() == "tpu":
-        c = jnp.sum(b * v[None, :], axis=1)
-    else:
-        c = jnp.matmul(b, v, precision=_PREC)
+    c = jnp.matmul(b, v, precision=_PREC)
     if row_mask is not None:
         c = c * row_mask.astype(c.dtype)
     return c
@@ -150,7 +137,7 @@ def orthogonalize_cgs2(v, basis, row_mask=None, passes: int = 2):
 
     Replaces the reference's sequential MGS ``schmidt_orth``
     (linear_algebra.hpp:132-144) with batched projections; CGS2 restores
-    orthogonality to O(machine eps) (Giraud et al.), and every pass is an MXU
+    orthogonality to O(machine eps) (Giraud et al.), and every pass is one
     matmul instead of k dependent AXPYs.  ``passes=1`` halves the cost and
     matches the reference's single-MGS-sweep robustness for a well-behaved
     basis.
@@ -160,7 +147,7 @@ def orthogonalize_cgs2(v, basis, row_mask=None, passes: int = 2):
     return v
 
 
-def orthogonalize_bcgs_dyn(v, basis, k, passes: int = 2, chunk: int = 64, use_pallas: bool | None = None):
+def orthogonalize_bcgs_dyn(v, basis, k, passes: int = 2, chunk: int = 64):
     """Gram-Schmidt of ``v`` against rows ``[0, k)`` of a fixed-capacity
     ``basis``, reading only ``ceil(k/chunk)`` row chunks from HBM.
 
@@ -180,40 +167,13 @@ def orthogonalize_bcgs_dyn(v, basis, k, passes: int = 2, chunk: int = 64, use_pa
     is clamped (re-projecting already-cleaned rows is a no-op), and rows
     ``>= k`` are masked out of the coefficients.
 
-    ``chunk=64`` measured best at (257, 2^22) f32 on the v5e: 6.7/13.3/26.3
-    ms per BCGS2 at k=64/128/256 vs a flat 23.7 ms for the monolithic
-    masked CGS2 (experiments/bcgs_chunk_sweep.py) — ~3.5x at low fill,
-    ~-9% worst case at exactly-full fill, ~44% averaged over a 0..cap
-    Krylov ramp.  On CPU the chunk loop *loses* to one big masked matmul
-    (measured 28.1 vs 24.8 s for the n=2000 hybrid solve — caches hide the
-    dead rows), so non-accelerator backends take the masked CGS path.
+    On the CPU the chunk loop loses to one big masked matmul (caches hide
+    the dead rows), so the CPU backend takes the masked CGS path.
     """
     cap_rows = basis.shape[0]
-    if jax.default_backend() not in ("tpu", "gpu"):
+    if jax.default_backend() == "cpu":
         row_mask = jnp.arange(cap_rows) < jnp.asarray(k, jnp.int32)
         return orthogonalize_cgs2(v, basis, row_mask.astype(jnp.float32), passes=passes)
-
-    # Single-drain Pallas pass where it applies (TPU, real f32, tileable n):
-    # measured 954/754/728 GB/s at k=64/128/256 vs the fori_loop's ~655
-    # (ops/pallas_cgs.py).  Each pass is classical GS — for the orthonormal
-    # live-row contract this matches the chunked block-MGS to O(eps·|c|).
-    #
-    # ``use_pallas=False`` opts out for call sites where the custom call
-    # interacts badly with surrounding control flow: inside a lax.cond-gated
-    # selective reorth the flagship measured 62.1 s with the kernel vs
-    # 60.7 s with the fori_loop (A/B via LANCZOS_TPU_NO_PALLAS_CGS), while
-    # the same kernel in an UNgated loop wins 7.93 vs 8.77 ms/iter
-    # (experiments/reorth_in_context.py).
-    from ..ops import pallas_cgs  # function-level: avoids core<->ops cycle
-
-    if use_pallas is None:
-        use_pallas = True
-    if use_pallas and pallas_cgs.pallas_cgs_fits(basis, v):
-        for _ in range(passes):
-            # chunk is forwarded: a caller tuning chunk must tune BOTH paths
-            # (the kernel masks at the same granularity).
-            v = pallas_cgs.cgs_pass(v, basis, k, chunk=min(int(chunk), basis.shape[0]))
-        return v
 
     chunk = min(int(chunk), cap_rows)
     k = jnp.asarray(k, jnp.int32)
@@ -247,7 +207,7 @@ def orthogonalize_bcgs_dyn_coeffs(v, basis, k, passes: int = 2, chunk: int = 64)
     exactly these sums; see solvers/thick_restart.py).
     """
     cap_rows = basis.shape[0]
-    if jax.default_backend() not in ("tpu", "gpu"):
+    if jax.default_backend() == "cpu":
         row_mask = jnp.arange(cap_rows) < jnp.asarray(k, jnp.int32)
         c_tot = jnp.zeros((cap_rows,), v.dtype)
         for _ in range(passes):
@@ -285,7 +245,7 @@ def orthogonalize_bcgs_dyn_coeffs(v, basis, k, passes: int = 2, chunk: int = 64)
 def orthogonalize_cgs2_df(v_df, basis, row_mask=None, passes: int = 2):
     """CGS2 of a double-float vector against an f32 row basis.
 
-    The projection coefficients come from hi-word MXU matmuls (HIGHEST): a
+    The projection coefficients come from hi-word matmuls (HIGHEST): a
     coefficient's own f32 rounding is a second-order correction (c ~ 2^-24
     after the recurrence), so only the *application* needs df arithmetic.
     This keeps the reorthogonalization cost identical to the plain engine —
@@ -336,7 +296,7 @@ def orthogonalize_block_cgs2_dfdf_coeffs(w_df, rows_df, row_mask=None, passes: i
     subtraction must be df-exact or every restart injects ~1e-8 into the
     carried relation (measured: exactly the ~5e-9/cycle floor that capped
     the pv thick engine at ~1e-11).  One lax.scan over rows with elementwise
-    df ops — O(rows * b * n) VPU work for single gated steps, not hot paths.
+    df ops — O(rows * b * n) elementwise work for single gated steps, not hot paths.
     """
     r_hi, r_lo = rows_df
     w_hi, w_lo = w_df

@@ -11,7 +11,7 @@ we select at runtime):
 
 ``host`` backends (numpy in / numpy out, always float64 — the m x m problem is
 tiny relative to the n-dimensional matvec, so full double precision here is
-free and is what lets the TPU build match the reference's 1e-12..1e-14
+free and is what lets the f32 device build match the reference's 1e-12..1e-14
 eigenvalue tolerances):
 
 * ``lapack`` — scipy's ``eigh_tridiagonal``/``eigh`` (LAPACK stev/steqr).
@@ -20,7 +20,7 @@ eigenvalue tolerances):
 * ``numpy``  — densify + ``numpy.linalg.eigh`` (always available fallback).
 
 ``device`` backend (jit-friendly, used inside the fused `lax.while_loop`
-Lanczos engine where a host round-trip per iteration would stall the TPU):
+Lanczos engine where a host round-trip per iteration would stall the device):
 
 * :func:`extremal_eigenvalues_device` — vectorized Sturm-count bisection for
   the ``nroot`` smallest/largest eigenvalues with a *dynamic* active size on a
@@ -254,8 +254,8 @@ def _sturm_counts(cs, alpha, beta_sq, size):
     """Eigenvalue counts below each point of ``cs`` — log-depth, batched.
 
     The reference Sturm count (tridiagonal_impl.hpp:22-43) is the sequential
-    ratio recurrence ``q_i = (a_i - c) - b2_{i-1}/q_{i-1}``; on TPU a
-    sequential scalar scan costs ~ms.  Equivalent TPU-native form: the
+    ratio recurrence ``q_i = (a_i - c) - b2_{i-1}/q_{i-1}``; on a device a
+    sequential scalar scan is latency-bound.  Equivalent parallel form: the
     leading principal minors obey the *linear* two-term recurrence
     ``d_k = (a_{k-1} - c) d_{k-1} - b2_{k-2} d_{k-2}``, i.e.
     ``[d_k, d_{k-1}] = M_k [d_{k-1}, d_{k-2}]`` with
@@ -286,11 +286,10 @@ def _sturm_counts(cs, alpha, beta_sq, size):
     )  # (cap, K, 2, 2)
 
     def combine(x, y):
-        # z = y @ x (prefix: apply x first), written as elementwise ops: on
-        # TPU a jnp.einsum would go through the MXU whose default f32
-        # precision does bf16 passes — 8-bit-mantissa fuzz in the minor
-        # signs stalls the bisection at ~1e-3 (observed).  The VPU
-        # elementwise form is exact f32.
+        # z = y @ x (prefix: apply x first), written as elementwise ops: an
+        # accelerator's default f32 matmul may use reduced-precision passes,
+        # and that fuzz in the minor signs stalls the bisection at ~1e-3.
+        # The elementwise form is exact f32.
         a, bq = y[..., 0, 0], y[..., 0, 1]
         c, d = y[..., 1, 0], y[..., 1, 1]
         e, f = x[..., 0, 0], x[..., 0, 1]
@@ -326,10 +325,10 @@ def extremal_eigenvalues_device(alpha, beta, size, nroot: int, find_maximum: boo
     MULTIsection per root over the Gershgorin-style interval
     ``|lambda| <= m_norm(alpha) + 2 m_norm(beta)``
     (reference: tridiagonal_impl.hpp:52-58, :63-88).  The root search is
-    latency-bound on TPU: each round is a batched log-depth Sturm minor
-    scan (~30 us of sequential VPU steps) and the rounds are sequential,
-    so plain bisection (46 rounds for f32) costs ~1.3-1.5 ms per call —
-    it dominated the fused engine's iteration.  Evaluating ``points``
+    latency-bound on a device: each round is a batched log-depth Sturm
+    minor scan of sequential steps and the rounds are sequential, so plain
+    bisection (46 rounds for f32) can dominate the fused engine's
+    iteration.  Evaluating ``points``
     equally spaced cuts per root per round shrinks the interval by
     (points+1)x at essentially the SAME per-round cost (the Sturm scan is
     already batched over evaluation points; the extra lanes are free), so

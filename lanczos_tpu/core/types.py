@@ -1,13 +1,12 @@
 """Dtype policy and scalar-type utilities.
 
-TPU-native re-think of the reference's type layer
+Re-think of the reference's type layer
 (reference: include/lambda_lanczos/util/common.hpp:80-134 — ``real_t<T>`` and
 ``typed_conj``): eigenvalues, alpha/beta recurrence scalars and tolerances are
 always *real* even when the operator is complex Hermitian, and inner products
 must conjugate their first argument.
 
-On TPU, float64 is software-emulated and complex128 is unsupported, so the
-dtype policy is explicit: the *vector dtype* (storage of Krylov vectors and
+The dtype policy is explicit: the *vector dtype* (storage of Krylov vectors and
 the operator) and the *solver dtype* (the small tridiagonal eigenproblem and
 convergence scalars) are chosen independently.  The solver dtype defaults to
 float64, which is cheap because everything at that level is O(m^2) for the

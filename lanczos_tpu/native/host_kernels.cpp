@@ -1,14 +1,14 @@
-// Native host kernels for the TPU Lanczos framework.
+// Native host kernels for the Lanczos framework.
 //
 // The reference library is header-only C++ (see SURVEY.md); the pieces that
-// remain host-side in the TPU design are re-realized here:
+// remain host-side in this design are re-realized here:
 //   * symmetric tridiagonal eigensolver (counterpart of the reference's
 //     implicit-shift QR, lambda_lanczos_tridiagonal_impl.hpp:181-343) —
 //     implemented as the classic implicit-shift QL sweep (EISPACK tql2
 //     lineage, Golub & Van Loan sec. 8.3), written fresh for this repo.
 //   * Sturm-count bisection eigenvalues (counterpart of
 //     tridiagonal_impl.hpp:22-134).
-//   * COO -> BSR block packing for the Pallas SpMV data path (no reference
+//   * COO -> BSR block packing for the BSR SpMV data path (no reference
 //     counterpart; the reference's user lambda iterates tuple lists,
 //     src/samples/sample2_sparse.cpp:43-47).
 //

@@ -1,1 +1,1 @@
-from . import operators, pallas_cgs, pallas_spmv, hermitian_split, filters
+from . import operators, hermitian_split, filters

@@ -1,10 +1,10 @@
 """Chebyshev spectral-filter operator: B = T_p((A - c)/e).
 
-A TPU-first acceleration with no reference counterpart: at production scale
-the Lanczos hot loop is REORTHOGONALIZATION-bound (streaming the live basis
-rows from HBM costs ~100x a stencil matvec at n=2^22 — see BASELINE.md's
-traffic model), so the right trade on this hardware is to spend MORE matvecs
-to need FEWER Lanczos iterations.  Wrapping the operator in a degree-p
+An acceleration with no reference counterpart: at production scale the
+Lanczos hot loop is REORTHOGONALIZATION-bound (streaming k live basis rows
+from device memory moves ~k/2 times the bytes of a two-diagonal stencil
+matvec), so the right trade is to spend MORE matvecs to need FEWER Lanczos
+iterations.  Wrapping the operator in a degree-p
 Chebyshev polynomial does exactly that: the filter damps the unwanted part
 of the spectrum into [-1, 1] and grows the wanted mu-band like
 cosh(p*sqrt(2*mu/e)), manufacturing a huge spectral gap.  Lanczos on B then
@@ -57,12 +57,6 @@ class ChebyshevFilterOperator(LinearOperator):
     # even degree BOTH sides amplify positively, so the map is two-valued
     # until the target side is pinned.
     side: int = -1
-    # Opt-in time-tiled Pallas chain kernel (ops/pallas_cheby.py).  Default
-    # OFF on measured evidence: at n=2^22/degree=400 the kernel lands at
-    # 42.8 ms/apply vs the lax.scan path's 36.5 — XLA already fuses the
-    # scan step to ~stream rate, and the VMEM-resident recurrence is
-    # VPU-roll-bound at roughly the same wall (BASELINE.md, round 4).
-    use_fused: bool = False
 
     @property
     def n(self):
@@ -100,40 +94,9 @@ class ChebyshevFilterOperator(LinearOperator):
         e = jnp.asarray(0.5 * (b - a), rdt)
         return cls(op, c, e, int(degree), side=(1 if find_maximum else -1))
 
-    def _fused_ok(self, x):
-        """Time-tiled Pallas chain kernel eligibility (ops/pallas_cheby.py):
-        explicit opt-in (see ``use_fused``) + banded f32 operator + vector
-        input + VMEM fit."""
-        from .operators import DIAOperator
-        from . import pallas_cheby
-
-        if not self.use_fused:
-            return False
-        op = self.op
-        if not isinstance(op, DIAOperator) or x.ndim != 1:
-            return False
-        if np.dtype(x.dtype) != np.float32 or np.dtype(op.dtype) != np.float32:
-            return False
-        w = max((abs(int(o)) for o in op.offsets), default=0)
-        if w == 0 or w > 8:
-            return False
-        return pallas_cheby.cheby_chain_fits(len(op.offsets) + 1, w)
-
     def matvec(self, x):
         c, e = self.c, self.e  # real scalars; broadcasting handles complex x
         op = self.op
-
-        if self._fused_ok(x):
-            # VMEM time-tiled recurrence: ~s steps per HBM round trip
-            # instead of one.  Opt-in only — measured at parity with the
-            # scan path on a v5e (the recurrence turns VPU-roll-bound once
-            # HBM is out of the picture; A/B in BASELINE.md).
-            from . import pallas_cheby
-
-            return pallas_cheby.cheby_chain_apply(
-                op.data, op.offsets, x, c, e, self.degree,
-                interpret=jax.default_backend() != "tpu",
-            )
 
         def step(carry, _):
             t_prev, t_cur = carry
@@ -219,7 +182,7 @@ class ChebyshevFilterOperator(LinearOperator):
         return out
 
     def tree_flatten(self):
-        return (self.op, self.c, self.e), (self.degree, self.side, self.use_fused)
+        return (self.op, self.c, self.e), (self.degree, self.side)
 
     @classmethod
     def tree_unflatten(cls, aux, children):

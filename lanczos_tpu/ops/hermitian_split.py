@@ -1,7 +1,6 @@
-"""Complex Hermitian eigenproblems in pure real arithmetic (TPU path).
+"""Complex Hermitian eigenproblems in pure real arithmetic.
 
-Complex dtypes are unsupported or broken on some TPU runtimes, but any
-Hermitian ``H = Hr + i Hi`` (``Hr`` symmetric, ``Hi`` antisymmetric) embeds
+Any Hermitian ``H = Hr + i Hi`` (``Hr`` symmetric, ``Hi`` antisymmetric) embeds
 as the real symmetric 2n x 2n matrix
 
     H~ = [[Hr, -Hi],

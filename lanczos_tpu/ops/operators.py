@@ -1,4 +1,4 @@
-"""Linear-operator layer: the TPU-native analogue of the reference's pluggable
+"""Linear-operator layer: the analogue of the reference's pluggable
 ``mv_mul`` closure (reference: include/lambda_lanczos/lambda_lanczos.hpp:120-126).
 
 The reference's single best idea — the matrix is never materialized, the user
@@ -10,8 +10,7 @@ XLA can fuse and shard it).
 Concrete operators mirror the reference sample zoo
 (src/samples/sample1_simple.cpp dense, sample2_sparse.cpp COO tuples,
 sample3_dynamic.cpp matrix-free, sample4_use_Eigen_library.cpp foreign
-arrays) plus a TPU-first BSR block-sparse format whose matvec runs as a
-Pallas kernel (lanczos_tpu/ops/pallas_spmv.py).
+arrays) plus a BSR block-sparse format whose matvec streams dense tiles.
 
 All operators are registered as JAX pytrees so engines can pass them through
 ``jax.jit`` boundaries as *arguments* (traced leaves), not captured constants.
@@ -50,7 +49,7 @@ class LinearOperator:
     ``(x_hi, x_lo) -> (y_hi, y_lo)`` with error-free-transformation products
     and compensated accumulation, accurate to ~2^-45 relative in pure f32
     arithmetic.  The fused engine's ``precise_vectors`` mode (the path that
-    reaches reference-grade eigenvalue tolerances on an f32-native TPU)
+    reaches reference-grade eigenvalue tolerances with f32 storage)
     requires it; Dense/DIA/BSR/Sum/Scaled implement it.
     """
 
@@ -106,11 +105,11 @@ class FunctionOperator(LinearOperator):
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class DenseOperator(LinearOperator):
-    """Dense symmetric/Hermitian operator; matvec is one MXU matmul.
+    """Dense symmetric/Hermitian operator; matvec is one matmul.
 
     Counterpart of the dense sample (sample1_simple.cpp:22-28).  On a device
     mesh, shard ``a`` row-partitioned (PartitionSpec('rows', None)); XLA GSPMD
-    then all-gathers the input vector over ICI and keeps the output sharded.
+    then all-gathers the input vector over the mesh and keeps the output sharded.
     """
 
     a: jax.Array
@@ -125,13 +124,13 @@ class DenseOperator(LinearOperator):
         return np.dtype(self.a.dtype)
 
     def matvec(self, x):
-        # HIGHEST: the default TPU f32 matmul uses bf16 passes (8-bit
-        # mantissa) — unacceptable for the solver's hot matvec.
+        # HIGHEST: an accelerator's default f32 matmul may run reduced-
+        # precision passes (TF32 on the GPU) — unacceptable for the solver.
         return jnp.matmul(self.a, x, precision=jax.lax.Precision.HIGHEST)
 
     def matvec_df(self, x_hi, x_lo):
         """Double-float matvec: exact elementwise products (Dekker two_prod)
-        reduced with a compensated pairwise tree on the VPU, plus the
+        reduced with a compensated pairwise tree, plus the
         f32-exactness-sufficient A @ x_lo correction."""
         from ..core import df64
 
@@ -205,9 +204,9 @@ def _gather_matvec_df(vals, cols, rows, n, x_hi, x_lo):
     Each nonzero's product is made exact by Dekker two_prod, but a plain f32
     ``segment_sum`` would round every accumulation back to the f32 floor —
     the one reduction XLA offers no compensated form of.  The honest route
-    is an f64 segmented reduction (software-emulated on TPU, native on CPU);
-    these are the PORTABLE formats, so correctness beats speed here — the
-    production TPU pv paths are BSR/DIA, whose matvec_df is EFT end-to-end.
+    is an f64 segmented reduction; these are the PORTABLE formats, so
+    correctness beats speed here — the production pv paths are BSR/DIA,
+    whose matvec_df is EFT end-to-end.
     Requires x64 (raises with guidance otherwise: without jax_enable_x64 the
     f64 cast silently degrades to f32 and the pv accuracy promise would be
     silently broken).
@@ -218,7 +217,7 @@ def _gather_matvec_df(vals, cols, rows, n, x_hi, x_lo):
         raise NotImplementedError(
             "COO/CSR matvec_df needs an f64 segmented reduction: enable x64 "
             "(jax.config.update('jax_enable_x64', True)) or convert the "
-            "operator with .to_bsr() / DIAOperator for the EFT TPU path"
+            "operator with .to_bsr() / DIAOperator for the EFT path"
         )
     xh = x_hi[cols]
     xl = x_lo[cols]
@@ -239,7 +238,7 @@ class COOOperator(LinearOperator):
 
     Counterpart of the tuple-list sample (sample2_sparse.cpp:43-47).  This is
     the portable (XLA gather/scatter) path; convert to :class:`BSROperator`
-    for the Pallas TPU kernel.
+    for the streaming tile path.
     """
 
     rows: jax.Array
@@ -283,7 +282,7 @@ class CSROperator(LinearOperator):
     construction (``row_of_nnz``) so the matvec is the same gather +
     segment-sum as COO — CSR's sequential per-row loop is hostile to XLA's
     static-shape model, while the flattened form vectorizes.  Convert to
-    :class:`BSROperator` (:meth:`to_bsr`) for the TPU roofline path.
+    :class:`BSROperator` (:meth:`to_bsr`) for the streaming tile path.
     """
 
     indptr: jax.Array  # (n+1,) int
@@ -328,50 +327,60 @@ class CSROperator(LinearOperator):
         return cls(children[0], children[1], children[2], aux[0], children[3])
 
 
+def bsr_matvec(blocks, col_blocks, x):
+    """y = A x for BSR tiles ``blocks`` (R, S, bm, bk) and block-column
+    indices ``col_blocks`` (R, S) against the padded ``x`` (R*bm,).
+
+    precision=HIGHEST is mandatory: a default f32 einsum may run
+    reduced-precision passes (TF32 on the GPU), ~1e-3 relative matvec error
+    that poisons eigenvalues.  The op is bandwidth-bound, so full precision
+    costs nothing.  XLA fuses the gather, the multiply and the (S, bk)
+    reduction into one pass over the tiles (no transposed copy).
+    """
+    bk = blocks.shape[3]
+    xg = x.reshape(-1, bk)[col_blocks]  # (R, S, bk) gather of needed segments
+    acc = jnp.promote_types(blocks.dtype, jnp.float32)
+    y = jnp.einsum(
+        "rsmk,rsk->rm", blocks, xg, preferred_element_type=acc,
+        precision=jax.lax.Precision.HIGHEST,
+    )
+    return y.reshape(-1).astype(x.dtype)
+
+
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class BSROperator(LinearOperator):
-    """Block-sparse-row operator, the TPU-native sparse format.
+    """Block-sparse-row operator: dense tiles streamed from device memory.
 
-    TPUs hate scalar gathers; a sparse matvec becomes bandwidth-optimal when
-    the nonzeros are packed into dense (bm x bk) tiles streamed from HBM and
-    multiplied on the MXU/VPU.  Layout (ELL-like, padded per row-block):
+    A scattered scalar gather per nonzero streams poorly; a sparse matvec
+    becomes bandwidth-bound when nonzeros are grouped into dense
+    (bm x bk) tiles that are streamed contiguously and multiplied against
+    gathered input segments.  Layout (ELL-like, padded per row-block):
 
     * ``blocks``      (n_row_blocks, max_blocks_per_row, bm, bk) dense tiles
     * ``col_blocks``  (n_row_blocks, max_blocks_per_row) int32 column-block
       index of each tile; padding tiles point at block 0 with all-zero values.
 
-    Kernel choice (measured on a real v5e, 64Mi-nnz operator, long-chain
-    timing): the production TPU kernel is the Pallas ``rmsk`` kernel —
-    tiles pre-transposed at pack time to (R, bm, S, bk) so each row block
-    is ONE long (bm, S*bk) x (S*bk,) MXU contraction — at 739.6 GB/s vs
-    the XLA gather+einsum path's 720.3 (the round-1 per-tile-dot kernel
-    managed only ~513, and (8, 128) tiles were inner-loop-bound at ~49).
-    ``from_coo`` therefore packs ``rmsk`` by default; the einsum path is
-    the fallback for complex dtypes, non-TPU backends, raw ``rsmk``
-    construction, and operators whose VMEM working set (input vector +
-    double-buffered tile slab) exceeds the on-chip budget.
-
-    ``layout`` names the stored axis order of ``blocks``: "rsmk"
-    (canonical (R, S, bm, bk)) or "rmsk" ((R, bm, S, bk), Pallas-ready).
+    The matvec is one XLA gather + einsum (:func:`bsr_matvec`).  On one
+    H100 it streams 64 Mi stored f32 nonzeros at the card's read rate; the
+    pre-transposed (R, bm, S, bk) layout and a hand-written Triton kernel
+    measured no faster (PERF.md, "Kernel decisions on the H100").
 
     Tile-size guidance: storage per row is (#column-blocks the row's block
     row touches) * bk, so for banded/local operators bm=128 costs the same
-    memory as bm=8 and is 10x+ faster; for pathologically scattered patterns
-    a large bm unions column sets over more rows — drop to bm=8 if the pack
-    inflates.
+    memory as bm=8 and is much faster; for pathologically scattered
+    patterns a large bm unions column sets over more rows — drop to bm=8 if
+    the pack inflates.
 
-    ``dtype=jnp.bfloat16`` halves the tile stream (roughly 2x nnz/s at the
-    same HBM bandwidth) at ~0.4% relative element rounding — pair with df64
-    alpha/beta reductions when eigenvalue tolerances allow matvec-level
-    noise.  Accumulation stays float32 (``preferred_element_type``).
+    ``dtype=jnp.bfloat16`` halves the tile stream at ~0.4% relative element
+    rounding — pair with df64 alpha/beta reductions when eigenvalue
+    tolerances allow matvec-level noise.  Accumulation stays float32
+    (``preferred_element_type``).
     """
 
     blocks: jax.Array
     col_blocks: jax.Array
     n: int
-    use_pallas: bool = True
-    layout: str = "rsmk"
 
     @property
     def dtype(self):
@@ -379,7 +388,7 @@ class BSROperator(LinearOperator):
 
     @property
     def bm(self):
-        return self.blocks.shape[1 if self.layout == "rmsk" else 2]
+        return self.blocks.shape[2]
 
     @property
     def bk(self):
@@ -388,7 +397,7 @@ class BSROperator(LinearOperator):
     @property
     def s_max(self):
         """Stored tiles per row block (padding included)."""
-        return self.blocks.shape[2 if self.layout == "rmsk" else 1]
+        return self.blocks.shape[1]
 
     @property
     def n_padded(self):
@@ -396,17 +405,14 @@ class BSROperator(LinearOperator):
 
     @property
     def nnz_dense(self):
-        """Number of stored (padded) nonzeros = what the kernel streams."""
+        """Number of stored (padded) nonzeros = what the matvec streams."""
         return int(np.prod(self.blocks.shape))
 
     @classmethod
-    def from_coo(cls, rows, cols, vals, n, *, bm: int = 128, bk: int = 128, dtype=jnp.float32, use_pallas: bool = True):
+    def from_coo(cls, rows, cols, vals, n, *, bm: int = 128, bk: int = 128, dtype=jnp.float32):
         """Pack COO triplets (duplicates summed) into the padded BSR layout.
 
-        Uses the native C++ packer when available, else numpy.  By default
-        the tiles are stored pre-transposed ("rmsk") so the TPU matvec runs
-        the winning Pallas kernel; ``use_pallas=False`` keeps the canonical
-        "rsmk" layout and the XLA einsum path.
+        Uses the native C++ packer when available, else numpy.
         """
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
@@ -440,45 +446,12 @@ class BSROperator(LinearOperator):
             blocks[r, s] = dense_blocks[i]
             col_blocks[r, s] = cb[i]
             slot[r] += 1
-        layout = "rsmk"
-        from . import pallas_spmv
-
-        # Pack rmsk only when the Pallas kernel can actually run: if the
-        # VMEM working set overflows (or the dtype isn't f32) the matvec
-        # would fall back to einsum, and the rmsk einsum is measurably
-        # slower than the canonical one (425 vs 720 GB/s on a v5e).
-        if (
-            use_pallas
-            and np.dtype(dtype) == np.float32
-            and pallas_spmv.pallas_t_fits(n_row_blocks, max_per_row, bm, bk, n_pad)
-        ):
-            blocks = np.ascontiguousarray(np.moveaxis(blocks, 2, 1))  # -> (R, bm, S, bk)
-            layout = "rmsk"
-        return cls(jnp.asarray(blocks), jnp.asarray(col_blocks), int(n), use_pallas, layout)
-
-    def _pallas_ok(self):
-        from . import pallas_spmv
-
-        return (
-            self.use_pallas
-            and self.layout == "rmsk"
-            and self.dtype == np.float32  # bf16/complex keep the einsum path
-            and pallas_spmv.pallas_t_fits(
-                self.blocks.shape[0], self.s_max, self.bm, self.bk,
-                self.n_padded, self.dtype.itemsize,
-            )
-        )
+        return cls(jnp.asarray(blocks), jnp.asarray(col_blocks), int(n))
 
     def matvec(self, x):
-        from . import pallas_spmv
-
         n_pad = self.n_padded
         xp = jnp.pad(x, (0, n_pad - x.shape[0])) if x.shape[0] != n_pad else x
-        if jax.default_backend() == "tpu" and self._pallas_ok():
-            y = pallas_spmv.bsr_matvec_pallas_t(self.blocks, self.col_blocks, xp)
-        else:
-            y = pallas_spmv.bsr_matvec_reference(self.blocks, self.col_blocks, xp, layout=self.layout)
-        return y[: self.n]
+        return bsr_matvec(self.blocks, self.col_blocks, xp)[: self.n]
 
     def matvec_df(self, x_hi, x_lo):
         """Double-float BSR matvec: two_prod per stored element, compensated
@@ -492,31 +465,23 @@ class BSROperator(LinearOperator):
         if pad:
             x_hi = jnp.pad(x_hi, (0, pad))
             x_lo = jnp.pad(x_lo, (0, pad))
-        r, s, bm, bk = self.blocks.shape[0], self.s_max, self.bm, self.bk
-        if self.layout == "rmsk":
-            xg_hi = x_hi.reshape(-1, bk)[self.col_blocks][:, None, :, :]  # (R,1,S,bk)
-            xg_lo = x_lo.reshape(-1, bk)[self.col_blocks][:, None, :, :]
-            p, e = df64.two_prod(self.blocks, xg_hi)  # (R,bm,S,bk)
-            e = e + self.blocks * xg_lo
-            p = p.reshape(r, bm, s * bk)
-            e = e.reshape(r, bm, s * bk)
-        else:
-            xg_hi = x_hi.reshape(-1, bk)[self.col_blocks][:, :, None, :]  # (R,S,1,bk)
-            xg_lo = x_lo.reshape(-1, bk)[self.col_blocks][:, :, None, :]
-            p, e = df64.two_prod(self.blocks, xg_hi)
-            e = e + self.blocks * xg_lo
-            # reduce over bk then S: (R,S,bm,bk) -> (R,bm,S*bk) -> (R,bm)
-            p = jnp.moveaxis(p, 1, 2).reshape(r, bm, s * bk)
-            e = jnp.moveaxis(e, 1, 2).reshape(r, bm, s * bk)
+        r, s, bm, bk = self.blocks.shape
+        xg_hi = x_hi.reshape(-1, bk)[self.col_blocks][:, :, None, :]  # (R,S,1,bk)
+        xg_lo = x_lo.reshape(-1, bk)[self.col_blocks][:, :, None, :]
+        p, e = df64.two_prod(self.blocks, xg_hi)
+        e = e + self.blocks * xg_lo
+        # reduce over bk then S: (R,S,bm,bk) -> (R,bm,S*bk) -> (R,bm)
+        p = jnp.moveaxis(p, 1, 2).reshape(r, bm, s * bk)
+        e = jnp.moveaxis(e, 1, 2).reshape(r, bm, s * bk)
         y_hi, y_lo = df64.df_sum_axis(p, e, axis=-1)
         return y_hi.reshape(-1)[: self.n], y_lo.reshape(-1)[: self.n]
 
     def tree_flatten(self):
-        return (self.blocks, self.col_blocks), (self.n, self.use_pallas, self.layout)
+        return (self.blocks, self.col_blocks), (self.n,)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(children[0], children[1], aux[0], aux[1], aux[2])
+        return cls(children[0], children[1], aux[0])
 
 
 @jax.tree_util.register_pytree_node_class
@@ -573,9 +538,7 @@ class DIAOperator(LinearOperator):
     def matvec(self, x):
         # Padded-x formulation: every diagonal reads a static slice of ONE
         # padded buffer and the partial products fuse into a single
-        # elementwise pass — measured 26.4 vs 39.9 us (.at[slice].add
-        # variant) at n=2^22, offsets [-1,1] on the v5e, bit-identical
-        # output (experiments/dia_matvec_variants.py).
+        # elementwise pass.
         n = self.n
         offs = self.offsets
         lo = max([0] + [-d for d in offs])
@@ -598,7 +561,7 @@ class DIAOperator(LinearOperator):
 
     def matvec_df(self, x_hi, x_lo):
         """Double-float banded matvec: per-diagonal two_prod with a running
-        compensated (df) accumulator — pure streaming on the VPU."""
+        compensated (df) accumulator — pure elementwise streaming."""
         from ..core import df64
 
         n = self.n
@@ -765,7 +728,7 @@ class ScaledOperator(LinearOperator):
         def _host_split(v):
             # scale/shift are static Python floats: split on HOST in real
             # float64.  jnp.asarray(..., jnp.float64) silently truncates to
-            # f32 when jax_enable_x64 is off (the TPU production config),
+            # f32 when jax_enable_x64 is off (the default config),
             # which zeroed the lo word and capped the df64 path at ~1e-8.
             hi = np.float32(v) if np.dtype(rdtype) == np.float32 else np.float64(v)
             lo = np.float64(v) - np.float64(hi)
@@ -855,7 +818,7 @@ class ShiftInvertOperator(LinearOperator):
     well-separated) ones — Lanczos on the transformed operator converges in
     a handful of iterations where direct Lanczos on ``A`` would need the
     whole spectrum resolved.  A factorization-based backend does an LU solve
-    per matvec; a matrix-free TPU backend runs MINRES (indefinite-safe, one
+    per matvec; the matrix-free device path runs MINRES (indefinite-safe, one
     ``lax.while_loop``, O(n) memory) — see :mod:`lanczos_tpu.solvers.minres`.
 
     ``sigma`` is a traced leaf: re-running with a different shift reuses the

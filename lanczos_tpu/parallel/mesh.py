@@ -2,15 +2,15 @@
 
 The reference has no distribution story at all (SURVEY.md section 2:
 grep-verified no MPI/NCCL/threads; its only parallelism is compile-time
-stdpar/CBLAS swaps, macro.hpp:4-12).  The TPU-native equivalent is a 1D
-``jax.sharding.Mesh`` over the pod slice with everything row-partitioned:
+stdpar/CBLAS swaps, macro.hpp:4-12).  Here it is a 1D
+``jax.sharding.Mesh`` over the devices with everything row-partitioned:
 
-* Krylov vectors: ``PartitionSpec('rows')`` — each chip owns a contiguous
+* Krylov vectors: ``PartitionSpec('rows')`` — each device owns a contiguous
   slice of the problem dimension n.
 * Operators: dense matrices ``P('rows', None)``; BSR block rows ``P('rows')``.
 * Scalars (alpha/beta/inner products): XLA GSPMD lowers the jnp reductions to
-  local partials + ``psum`` over ICI automatically once the inputs carry these
-  shardings; nothing in the solver code changes.
+  local partials + ``psum`` over the mesh automatically once the inputs carry
+  these shardings; nothing in the solver code changes.
 
 Multi-host bootstrap goes through ``jax.distributed.initialize`` (call
 :func:`initialize_distributed` once per process before building the mesh).
@@ -24,7 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = [
     "make_mesh",
-    "make_multislice_mesh",
+    "make_multihost_mesh",
     "row_sharding",
     "replicated_sharding",
     "shard_vector",
@@ -56,31 +56,23 @@ def make_mesh(devices=None, axis_name: str = ROWS) -> Mesh:
     return Mesh(devices.reshape(-1), (axis_name,))
 
 
-def make_multislice_mesh(num_slices: int | None = None, *, devices=None, dcn_axis: str = "slices", ici_axis: str = ROWS) -> Mesh:
-    """2D (slices, rows) mesh for multi-slice pods: the ``rows`` axis rides
-    ICI inside each slice, the ``slices`` axis crosses DCN.
+def make_multihost_mesh(num_hosts: int | None = None, *, devices=None, host_axis: str = "hosts", local_axis: str = ROWS) -> Mesh:
+    """2D (hosts, rows) mesh: one row per host (``process_index``), its local
+    devices along ``rows``.
 
     Lay out shardings so the per-iteration collectives (alpha/beta psum,
-    halo exchange) use only the ``rows`` axis; put independent work
-    (batched operators, independent restarts) on ``slices`` so nothing
-    latency-critical crosses DCN.  Uses
-    ``mesh_utils.create_hybrid_device_mesh`` when slice topology metadata is
-    available, else a plain reshape (CPU testing).
+    halo exchange) use only the ``rows`` axis, which stays inside one host;
+    put independent work (batched operators, independent restarts) on
+    ``hosts`` so nothing latency-critical crosses the host network.
+    ``num_hosts`` defaults to the number of distinct ``process_index``
+    values; the devices are grouped by it in order.
     """
     devices = list(devices) if devices is not None else jax.devices()
-    if num_slices is None:
-        num_slices = max(len({getattr(d, "slice_index", 0) for d in devices}), 1)
-    per_slice = len(devices) // num_slices
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(1, per_slice), dcn_mesh_shape=(num_slices, 1), devices=devices
-        )
-        return Mesh(arr, (dcn_axis, ici_axis))
-    except Exception:
-        arr = np.asarray(devices).reshape(num_slices, per_slice)
-        return Mesh(arr, (dcn_axis, ici_axis))
+    devices.sort(key=lambda d: (d.process_index, d.id))
+    if num_hosts is None:
+        num_hosts = len({d.process_index for d in devices})
+    arr = np.asarray(devices).reshape(num_hosts, len(devices) // num_hosts)
+    return Mesh(arr, (host_axis, local_axis))
 
 
 def row_sharding(mesh: Mesh, ndim: int = 1, axis_name: str = ROWS) -> NamedSharding:
@@ -94,8 +86,8 @@ def replicated_sharding(mesh: Mesh) -> NamedSharding:
 
 
 def pad_to_multiple(n: int, mesh: Mesh, lane: int = 128, axis_name: str = ROWS) -> int:
-    """Smallest n' >= n divisible by (#devices * lane): keeps every shard
-    tile-aligned for the TPU (8x128 f32 tiles) and evenly split."""
+    """Smallest n' >= n divisible by (#devices * lane): every shard is evenly
+    split and a whole number of 128-element segments, the BSR tile width."""
     q = mesh.shape[axis_name] * lane
     return -(-n // q) * q
 
@@ -108,7 +100,7 @@ def shard_vector(x, mesh: Mesh, axis_name: str = ROWS):
 
 def shard_dense_operator(a, mesh: Mesh, axis_name: str = ROWS):
     """Row-partition a dense operator matrix: P('rows', None).  XLA GSPMD
-    all-gathers the matvec input over ICI and keeps the output sharded."""
+    all-gathers the matvec input over the mesh and keeps the output sharded."""
     return jax.device_put(a, row_sharding(mesh, 2, axis_name))
 
 

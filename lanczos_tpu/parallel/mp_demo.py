@@ -2,9 +2,9 @@
 
 The reference library is strictly single-address-space (SURVEY.md §2:
 grep-verified no MPI/NCCL; ``std::vector<T>(n)`` in one process,
-lambda_lanczos.hpp:242).  The TPU-native framework scales across HOSTS via
+lambda_lanczos.hpp:242).  This framework scales across HOSTS via
 ``jax.distributed.initialize`` + a global mesh (SURVEY.md:314-315) — and
-that path is testable WITHOUT a pod (SURVEY.md:269): each process gets a
+that path is testable without a cluster (SURVEY.md:269): each process gets a
 few virtual CPU devices (``--xla_force_host_platform_device_count``) and
 the XLA CPU client runs the cross-process collectives over gloo.
 
@@ -82,10 +82,10 @@ def _maybe_coverage_hook() -> None:
     The repo's coverage gate (tools/coverage_gate.py) is built on THIS
     process's sys.monitoring, which cannot see lines executed in the real
     OS processes :func:`launch` spawns — exactly the lines this module
-    exists for.  When the gate exports ``LANCZOS_TPU_COV_DUMP`` (a
+    exists for.  When the gate exports ``LT_COV_DUMP`` (a
     directory), each worker installs the same first-hit LINE monitor and
     dumps its hits there at exit; the gate merges the dumps."""
-    dump_dir = os.environ.get("LANCZOS_TPU_COV_DUMP")
+    dump_dir = os.environ.get("LT_COV_DUMP")
     if not dump_dir:
         return
     import atexit
@@ -125,7 +125,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=512)
     args = ap.parse_args(argv)
 
-    # CPU-virtual-device env must be set before the first jax import.
+    # CPU-virtual-device env must be set before the first jax import.  The
+    # children stay on the CPU: a JAX process that touches an accelerator
+    # reserves most of its memory, so a second one on the same card fails.
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     os.environ.setdefault(
         "XLA_FLAGS",
@@ -164,7 +166,7 @@ def launch(num_processes: int = 2, *, local_devices: int = 4, n: int = 512,
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"  # one process per card: children never open one
     env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={local_devices}"
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")

@@ -2,18 +2,18 @@
 
 The reference library has no distribution story (SURVEY.md §2: grep-verified no
 MPI/NCCL; its vectors live in one address space, lambda_lanczos.hpp:242).  The
-TPU-native scaling axis is **row partitioning of the problem dimension n** over
+scaling axis is **row partitioning of the problem dimension n** over
 a ``jax.sharding.Mesh``:
 
 * Krylov vectors / basis rows are sharded ``P('rows')`` along n.
 * The inner products / norms / CGS2 projections of the solver lower to local
-  partial reductions + ``psum`` over ICI automatically under GSPMD — nothing
+  partial reductions + ``psum`` over the interconnect automatically under GSPMD — nothing
   in the solver changes.
 * The sparse matvec is the one op that needs explicit communication: each chip
   owns a contiguous slab of BSR row-blocks and needs the *full* input vector
   (its columns touch remote segments).  :class:`ShardedBSROperator` expresses
-  this as a ``shard_map``: ``all_gather`` of the input over ICI, then the
-  local Pallas SpMV over the chip's row slab.  The gather (n words over ICI)
+  this as a ``shard_map``: ``all_gather`` of the input over the interconnect, then the
+  local SpMV over the device's row slab.  The gather (n words over the interconnect)
   is tiny next to the tile stream (nnz words from HBM), so this is the
   bandwidth-optimal 1D SpMV decomposition.
 
@@ -33,8 +33,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.operators import BSROperator, DIAOperator, LinearOperator
-from ..ops import pallas_spmv
+from ..ops.operators import BSROperator, DIAOperator, LinearOperator, bsr_matvec
 from .mesh import ROWS, row_sharding
 
 __all__ = ["ShardedBSROperator", "ShardedDIAOperator", "shard_operator"]
@@ -48,7 +47,7 @@ class ShardedBSROperator(LinearOperator):
     ``blocks``/``col_blocks`` carry a ``NamedSharding`` splitting the leading
     (row-block) axis over ``axis_name``; ``matvec`` is a ``shard_map`` that
     all-gathers the input vector over the mesh and runs the local BSR SpMV
-    (Pallas on TPU, jnp elsewhere) on each chip's slab.
+    (:func:`~lanczos_tpu.ops.operators.bsr_matvec`) on each device's slab.
 
     The analogue of the reference's user-supplied ``mv_mul``
     (lambda_lanczos.hpp:120-126) for a matrix too large for one chip.
@@ -59,11 +58,7 @@ class ShardedBSROperator(LinearOperator):
     n: int
     mesh: Mesh
     axis_name: str = ROWS
-    # Default matches from_coo and BSROperator: the XLA gather+einsum path
-    # measured faster than the hand kernel (see ops/operators.py) — a
-    # directly-constructed instance must not silently take the slower path.
-    use_pallas: bool = False
-    # 'gather': all_gather the input then local SpMV (simple; ICI traffic is
+    # 'gather': all_gather the input then local SpMV (simple; interconnect traffic is
     # O(n) per chip REGARDLESS of device count, so it stops being
     # bandwidth-optimal as the mesh grows — VERDICT r4 missing item 2).
     # 'ring': neighbor-halo schedule (SURVEY item 1's "halo exchange
@@ -76,7 +71,7 @@ class ShardedBSROperator(LinearOperator):
     # — at pack time each (receiver, owner-hop) pair records exactly which
     # column blocks the receiver's tiles touch; per matvec each owner
     # gathers only those blocks from its local segment and one ppermute
-    # per occurring hop delivers them.  ICI words moved per chip =
+    # per occurring hop delivers them.  interconnect words moved per chip =
     # sum_h F_h * bk ∝ touched remote columns (padded per hop), not n.
     comm: str = "gather"
     # Ring-mode tile groups: (R, S_g, bm, bk) with LOCAL column indices
@@ -105,7 +100,7 @@ class ShardedBSROperator(LinearOperator):
         return self.blocks.shape[0] * self.bm
 
     @classmethod
-    def from_coo(cls, rows, cols, vals, n, mesh: Mesh, *, axis_name: str = ROWS, bm: int = 128, bk: int = 128, dtype=jnp.float32, use_pallas: bool = False, comm: str = "gather"):
+    def from_coo(cls, rows, cols, vals, n, mesh: Mesh, *, axis_name: str = ROWS, bm: int = 128, bk: int = 128, dtype=jnp.float32, comm: str = "gather"):
         """Pack COO triplets and place the row-block slabs across the mesh.
 
         Pads n so the row-block count divides the mesh size (zero blocks are
@@ -128,9 +123,9 @@ class ShardedBSROperator(LinearOperator):
         # cols-per-device = 0 -> divide-by-zero owner indices).
         q = int(np.lcm(np.lcm(bk, ndev * bm), ndev * bk))
         n_pad = -(-max(n, 1) // q) * q
-        # Canonical rsmk layout: the sharded slabs and ring groups index
-        # tiles as (R, S, bm, bk); the local spmv dispatches on use_pallas.
-        base = BSROperator.from_coo(rows, cols, vals, n_pad, bm=bm, bk=bk, dtype=dtype, use_pallas=False)
+        # The sharded slabs and ring groups index tiles as (R, S, bm, bk),
+        # BSROperator's layout.
+        base = BSROperator.from_coo(rows, cols, vals, n_pad, bm=bm, bk=bk, dtype=dtype)
         blocks = jax.device_put(base.blocks, NamedSharding(mesh, P(axis_name, None, None, None)))
         col_blocks = jax.device_put(base.col_blocks, NamedSharding(mesh, P(axis_name, None)))
 
@@ -152,10 +147,9 @@ class ShardedBSROperator(LinearOperator):
             )
             # The packed exchange pays one collective + one grouped SpMV
             # PER occurring hop, so it must buy a substantial volume
-            # reduction to be worth the extra dispatches (measured on the
-            # CPU mesh, where per-op overhead dominates, an 8-hop footprint
-            # at 0.1% volume still lost wall — experiments/footprint_ab.py;
-            # on ICI the volume term is the one that scales).  Auto demands
+            # reduction to be worth the extra dispatches (on the CPU mesh,
+            # where per-op overhead dominates, an 8-hop footprint at 0.1%
+            # volume still lost wall; not measured on GPUs).  Auto demands
             # >= 4x volume reduction; an explicit comm='footprint' only
             # falls back when it saves nothing at all.
             limit = (n_pad // 4) if comm_requested == "auto" else n_pad
@@ -165,7 +159,7 @@ class ShardedBSROperator(LinearOperator):
             comm = "gather"
         if ndev <= 1 and comm != "gather":
             comm = "gather"
-        return cls(blocks, col_blocks, int(n), mesh, axis_name, use_pallas, comm,
+        return cls(blocks, col_blocks, int(n), mesh, axis_name, comm,
                    ring_groups, footprint)
 
     @staticmethod
@@ -214,7 +208,7 @@ class ShardedBSROperator(LinearOperator):
         For each occurring owner hop h != 0, record per RECEIVING device the
         exact set of column blocks its tiles touch on device d+h; the
         matvec then moves only those blocks (one gather + one ppermute per
-        hop) instead of all-gathering the whole vector — ICI words per chip
+        hop) instead of all-gathering the whole vector — interconnect words per chip
         = sum_h F_h * bk ∝ touched remote columns.  Returns
         ``((self_group, hop_list), words_per_chip)`` with hop_list entries
         ``(h, tiles (R,S_h,bm,bk), cb_recv (R,S_h), send_idx (ndev,F_h))``;
@@ -273,20 +267,6 @@ class ShardedBSROperator(LinearOperator):
             words += fh * bk
         return (self_group, tuple(hop_list)), words
 
-    @staticmethod
-    def _spmv_rows(blk, cb, x2, out_dtype):
-        """Tile SpMV against pre-shaped (n_blocks, bk) input rows."""
-        acc = jnp.promote_types(blk.dtype, jnp.float32)
-        return jnp.einsum(
-            "rsmk,rsk->rm", blk, x2[cb], preferred_element_type=acc,
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(-1).astype(out_dtype)
-
-    def _local_spmv(self, blk, cb, seg, use_pallas):
-        if use_pallas:
-            return pallas_spmv.bsr_matvec_pallas(blk, cb, seg)
-        return self._spmv_rows(blk, cb, seg.reshape(-1, self.bk), seg.dtype)
-
     def matvec(self, x):
         n_pad = self.n_padded
         if x.shape[0] != n_pad:
@@ -296,7 +276,6 @@ class ShardedBSROperator(LinearOperator):
         spec_blk = P(self.axis_name, None, None, None)
         spec_cb = P(self.axis_name, None)
         spec_v = P(self.axis_name)
-        use_pallas = self.use_pallas and jax.default_backend() == "tpu"
         axis = self.axis_name
         ndev = self.mesh.shape[axis]
 
@@ -311,15 +290,15 @@ class ShardedBSROperator(LinearOperator):
             )
             def _mv_ring(bs, cs, bl, cl, br, cr, x_local):
                 # Issue both halo permutes FIRST: they are data-independent
-                # of the self-group SpMV, so XLA overlaps the ICI transfer
+                # of the self-group SpMV, so XLA overlaps the interconnect transfer
                 # with the HBM tile stream (SURVEY item 1's overlap).
                 from_left = jax.lax.ppermute(x_local, axis, [(j, (j + 1) % ndev) for j in range(ndev)])
                 from_right = jax.lax.ppermute(x_local, axis, [(j, (j - 1) % ndev) for j in range(ndev)])
-                y = self._local_spmv(bs, cs, x_local, use_pallas)
+                y = bsr_matvec(bs, cs, x_local)
                 # Edge devices hold all-zero neighbor groups, so the wrapped
                 # segments multiply zeros — open-boundary semantics for free.
-                y = y + self._local_spmv(bl, cl, from_left, use_pallas)
-                y = y + self._local_spmv(br, cr, from_right, use_pallas)
+                y = y + bsr_matvec(bl, cl, from_left)
+                y = y + bsr_matvec(br, cr, from_right)
                 return y
 
             y = _mv_ring(bs, cs, bl, cl, br, cr, x)
@@ -347,16 +326,16 @@ class ShardedBSROperator(LinearOperator):
                 x2 = x_local.reshape(-1, self.bk)
                 # Issue every hop's gather+ppermute FIRST: the payloads are
                 # data-independent of the self-group SpMV, so XLA overlaps
-                # the ICI transfers with the local tile stream.
+                # the interconnect transfers with the local tile stream.
                 recvs = []
                 for t in range(nh):
                     sh = rest[3 * t + 2]
                     payload = x2[sh[0]]  # (F_h, bk) — only the touched blocks
                     recvs.append(jax.lax.ppermute(payload, axis, perms[t]))
-                y = self._local_spmv(bs, cs, x_local, use_pallas)
+                y = bsr_matvec(bs, cs, x_local)
                 for t in range(nh):
                     bh, ch = rest[3 * t], rest[3 * t + 1]
-                    y = y + self._spmv_rows(bh, ch, recvs[t], x_local.dtype)
+                    y = y + bsr_matvec(bh, ch, recvs[t].reshape(-1))
                 return y
 
             y = _mv_fp(bs, cs, *flat, x)
@@ -370,10 +349,10 @@ class ShardedBSROperator(LinearOperator):
         )
         def _mv(blk, cb, x_local):
             # Halo exchange: the local row slab's columns may touch any remote
-            # segment of x, so gather the full vector over ICI (n words —
+            # segment of x, so gather the full vector over the interconnect (n words —
             # negligible next to the nnz-word HBM tile stream).
             x_full = jax.lax.all_gather(x_local, self.axis_name, tiled=True)
-            return self._local_spmv(blk, cb, x_full, use_pallas)
+            return bsr_matvec(blk, cb, x_full)
 
         y = _mv(self.blocks, self.col_blocks, x)
         return y[: self.n] if self.n != n_pad else y
@@ -381,8 +360,8 @@ class ShardedBSROperator(LinearOperator):
     def _local_spmv_df(self, blk, cb, seg_hi, seg_lo):
         """Double-float local BSR SpMV on one chip's row slab.
 
-        Mirrors the single-device :meth:`BSROperator.matvec_df` rsmk-free
-        branch (ops/operators.py): two_prod per stored element, the input's
+        Mirrors the single-device :meth:`BSROperator.matvec_df`
+        (ops/operators.py): two_prod per stored element, the input's
         low word folded in exactly, then a compensated log-depth tree
         reduction over the (S, bk) contraction — the EFT guarantees of the
         precise_vectors path survive the row partitioning unchanged because
@@ -409,8 +388,8 @@ class ShardedBSROperator(LinearOperator):
         """Double-float sharded BSR matvec: BOTH words travel the same
         collective path as the plain :meth:`matvec` (one stacked all_gather,
         or one stacked ppermute pair in ring mode — 2x the halo words,
-        still O(n) over ICI vs O(nnz) from HBM), then each chip runs the
-        EFT local SpMV on its slab.  Completes the SURVEY §2 TPU checklist
+        still O(n) over the interconnect vs O(nnz) from HBM), then each chip runs the
+        EFT local SpMV on its slab.  Completes the SURVEY §2 checklist
         item 1 (the mv_mul analogue, lambda_lanczos.hpp:120-126) for the
         framework's headline-accuracy mode: precise_vectors now runs on the
         production sparse format across chips, not just the DIA stencil."""
@@ -442,7 +421,7 @@ class ShardedBSROperator(LinearOperator):
             )
             def _mv_ring_df(bs, cs, bl, cl, br, cr, xh_local, xl_local):
                 # One stacked ppermute per direction moves both words in a
-                # single ICI transfer; issued before the self-group SpMV so
+                # single interconnect transfer; issued before the self-group SpMV so
                 # XLA overlaps the halo with the HBM tile stream.
                 xs = jnp.stack([xh_local, xl_local])
                 from_left = jax.lax.ppermute(xs, axis, [(j, (j + 1) % ndev) for j in range(ndev)])
@@ -520,19 +499,19 @@ class ShardedBSROperator(LinearOperator):
             fp_arrays = (sg, tuple((b, c, s) for (_h, b, c, s) in hop_list))
             fp_hops = tuple(h for (h, *_r) in hop_list)
         return (self.blocks, self.col_blocks, self.ring_groups, fp_arrays), (
-            self.n, self.mesh, self.axis_name, self.use_pallas, self.comm, fp_hops,
+            self.n, self.mesh, self.axis_name, self.comm, fp_hops,
         )
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        n, mesh, axis_name, use_pallas, comm, fp_hops = aux
+        n, mesh, axis_name, comm, fp_hops = aux
         blocks, col_blocks, ring_groups, fp_arrays = children
         footprint = None
         if fp_arrays is not None:
             sg, groups = fp_arrays
             footprint = (sg, tuple(
                 (h, b, c, s) for h, (b, c, s) in zip(fp_hops, groups)))
-        return cls(blocks, col_blocks, n, mesh, axis_name, use_pallas, comm,
+        return cls(blocks, col_blocks, n, mesh, axis_name, comm,
                    ring_groups, footprint)
 
 
@@ -543,7 +522,7 @@ class ShardedDIAOperator(LinearOperator):
 
     The communication-optimal distributed stencil: each device owns a
     contiguous slice of n and only exchanges ``halo = max|offset|`` boundary
-    elements with its ring neighbors per matvec (``lax.ppermute`` over ICI),
+    elements with its ring neighbors per matvec (``lax.ppermute`` over the interconnect),
     instead of all-gathering the whole vector.  Devices at the global edges
     receive zeros from the missing neighbor, which is exactly the
     out-of-range boundary semantics of the dense :class:`DIAOperator`.
@@ -553,10 +532,10 @@ class ShardedDIAOperator(LinearOperator):
     data: jax.Array  # (ndiag, n), axis 1 sharded over axis_name
     n: int
     mesh: Mesh
-    # A single mesh axis, or a TUPLE of axes for a multislice layout: e.g.
-    # ('slices', 'rows') splits n over the combined axes with 'rows'
-    # fastest-varying, so the nearest-neighbor halo ppermutes stay on ICI
-    # except at the few slice boundaries (the DCN-aware stencil layout).
+    # A single mesh axis, or a TUPLE of axes for a 2D mesh: e.g.
+    # ('hosts', 'rows') splits n over the combined axes with 'rows'
+    # fastest-varying, so the nearest-neighbor halo ppermutes stay inside a
+    # host except at the few host boundaries.
     axis_name: str | tuple = ROWS
 
     def _ndev(self):

@@ -1,11 +1,11 @@
-"""Block Lanczos eigensolver (TPU-first extension; no reference counterpart).
+"""Block Lanczos eigensolver (an extension; no reference counterpart).
 
 The reference resolves degenerate eigenvalues by *repeated deflated restarts*
 (lambda_lanczos.hpp:330-366): each restart leaks into the degenerate subspace
-through a fresh random vector.  On TPU a block method is the natural fit:
+through a fresh random vector.  On an accelerator a block method fits well:
 
 * the hot op becomes a block matvec ``A @ [v_1..v_b]`` — an (n, b) matmul
-  that uses the MXU instead of b bandwidth-bound matvecs,
+  that reads the operator once instead of b bandwidth-bound matvecs,
 * a block of size b captures eigenvalue multiplicity <= b in ONE Krylov
   build instead of b restarts,
 * all reductions (block overlap A_k, reorthogonalization) are (m, n) x (n, b)
@@ -244,7 +244,7 @@ def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: Lanc
     w_rows = _block_matvec(op, v_rows)
     if cfg.eigenvalue_offset:
         w_rows = w_rows + jnp.asarray(cfg.eigenvalue_offset, np.dtype(rdtype)).astype(dtype) * v_rows
-    _hp = jax.lax.Precision.HIGHEST  # TPU default f32 matmul is bf16 passes
+    _hp = jax.lax.Precision.HIGHEST  # default f32 matmul may be TF32 on the GPU
     if is_complex_dtype(dtype):
         t_small = np.asarray(jax.device_get(jnp.matmul(jnp.conj(v_rows), w_rows.T, precision=_hp)), host_dtype)
         s_small = np.asarray(jax.device_get(jnp.matmul(jnp.conj(v_rows), v_rows.T, precision=_hp)), host_dtype)

@@ -15,11 +15,11 @@ any step count.  Compare the Krylov exponentiator (exponentiator_fused.py):
 ~krylov_dim matvecs plus a basis build + orthogonalization PER STEP, with
 the step count set by dt accuracy.  For long evolutions the Chebyshev chain
 does the same job in one lax.scan of cheap matvecs with O(1) extra memory —
-the same trade that makes the filtered eigensolver fast on this hardware
-(BASELINE.md): matvec chains run at stream rate, basis traffic does not.
+the same trade that makes the filtered eigensolver fast: matvec chains
+stream, basis traffic does not.
 
-TPU-first details: split-complex state (complex dtypes are broken on some
-TPU runtimes — the codebase convention, see exponentiator_fused.run_split),
+Details: split-complex state (the codebase convention, see
+exponentiator_fused.run_split),
 the whole chain is ONE jitted lax.scan (coefficients are a (K, 2) operand,
 never baked into the HLO), and a GRID of times reuses one T_k chain (time
 enters only through the host Bessel coefficients — the exact analogue of
@@ -30,8 +30,8 @@ blow up like cosh — the same rule as the Chebyshev filter's damp window);
 the default bounds are +-Gershgorin, which always satisfy it.
 
 No reference counterpart (the reference's exponentiator is Krylov-only,
-exponentiator.hpp:87-173); this is the standard spectral method the TPU's
-cost model favors.
+exponentiator.hpp:87-173); this is the standard spectral method for a
+bandwidth-bound device.
 """
 
 from __future__ import annotations
@@ -218,7 +218,7 @@ def chebyshev_expm_apply_split_precise(op, a, v_re, v_im, *, lo=None, hi=None,
     ci_hi, ci_lo = _df_split_host(np.imag(coef), rdt)
     c_hi, c_lo = _df_split_host(c, rdt)
     inv_hi, inv_lo = _df_split_host(np.float64(1.0) / np.float64(e), rdt)
-    # host f64 inputs are df-split in NUMPY (the x64-disabled TPU runtime
+    # host f64 inputs are df-split in NUMPY (an x64-disabled runtime
     # silently truncates a traced f64 — the evolve(..., precise) lesson)
     vr_hi, vr_lo = _df_split_host(np.asarray(v_re, np.float64), rdt)
     vi_hi, vi_lo = _df_split_host(np.asarray(v_im, np.float64), rdt)

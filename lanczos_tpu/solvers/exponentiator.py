@@ -5,8 +5,7 @@ The scalar ``a`` may be complex (e.g. ``-i*dt`` for quantum time evolution,
 reference README.md:84-89, exponentiator_test.cpp:123-132) even though the
 operator is Hermitian; the small-problem arithmetic (tridiagonal eigensolve,
 Krylov coefficients) runs on host in full float64/complex128 regardless of
-the device vector dtype, because TPUs do not support complex128 — only the
-O(n) work (matvec, recurrence, reorthogonalization, final recombination)
+the device vector dtype — only the O(n) work (matvec, recurrence, reorthogonalization, final recombination)
 touches the device.
 
 Convergence differs from the eigensolver: the overlap of successive Krylov
@@ -141,9 +140,7 @@ def krylov_expm_apply_grid(op, a_list, v, cfg: ExponentiatorConfig):
 def krylov_expm_apply_grid_split(op, a_list, v, cfg: ExponentiatorConfig):
     """Grid variant recombined in SPLIT real arithmetic: the coefficient
     grid's real and imaginary parts each multiply the REAL Krylov basis, so
-    no complex dtype ever reaches the device (complex64 matmuls are
-    UNIMPLEMENTED on the TPU runtime — measured via the Hermitian facade
-    drive).  Real operator/basis only.  Returns
+    no complex dtype ever reaches the device.  Real operator/basis only.  Returns
     ((out_re (num, n), out_im (num, n)), iteration_count)."""
     dtype = np.dtype(v.dtype)
     if is_complex_dtype(dtype):
@@ -239,8 +236,8 @@ def taylor_expm_apply(op, a, v, cfg: ExponentiatorConfig):
     host.  The reference stores raw ``A^k v`` (exponentiator.hpp:189-191),
     whose norm grows like ``||A||^k`` — in f32 that overflows to inf around
     k~64 for ||A||~4, and since ``inf * factor`` never drops below eps its
-    unbounded loop (``for(;;)``, :188) would spin forever on a TPU-storage
-    dtype.  Scaled terms decay once ``k > |a| ||A||``, so termination is
+    unbounded loop (``for(;;)``, :188) would spin forever on an f32
+    storage dtype.  Scaled terms decay once ``k > |a| ||A||``, so termination is
     guaranteed for every finite input, the convergence quantity
     ``norm(t_k)`` equals the reference's ``norm(A^k v) * |a^k/k!|`` exactly,
     and intermediate overflow happens only when exp(|a| ||A||) itself
@@ -269,8 +266,7 @@ def taylor_expm_apply_split(op, a, v, cfg: ExponentiatorConfig):
     """Taylor exp(a*A) v with SPLIT-COMPLEX accumulation: the real scaled
     terms are summed (backward) into separate re/im accumulators with the
     real/imaginary parts of the unit phases, so no complex dtype ever
-    reaches the device (complex64 arithmetic is UNIMPLEMENTED on the TPU
-    runtime).  Real operator/storage only; returns
+    reaches the device.  Real operator/storage only; returns
     ((out_re, out_im), term_count)."""
     dtype = np.dtype(v.dtype)
     if is_complex_dtype(dtype):

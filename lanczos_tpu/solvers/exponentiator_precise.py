@@ -1,4 +1,4 @@
-"""Double-float (df64) Krylov exponentiation: f64-grade evolution on f32 TPUs.
+"""Double-float (df64) Krylov exponentiation: f64-grade evolution in f32 storage.
 
 Why this exists (round 4, VERDICT r3 item 4): the f32 ``evolve_split`` loop
 drifts ~1e-7 in state ANGLE per step — the overlap metric the reference uses
@@ -9,18 +9,18 @@ four equal ~1e-7 contributors — carried-state f32 representation, f32 build
 arithmetic (alpha/beta/CGS), the f32 small-matrix exponential, and the f32
 recombination — so fixing any one alone is pointless.  This module fixes all
 four with the df64 machinery the eigensolver's ``precise_vectors`` mode
-already proved on chip:
+already relies on:
 
 * the state is carried as (hi, lo) word pairs through the whole scan,
 * the fixed-m Lanczos build runs on the operator's EFT ``matvec_df`` with
   df inner products and df CGS2 (core/linalg.py),
 * alpha/beta are df pairs and the split-complex small-matrix exponential
   (Taylor + scaling-squaring, mirroring ``_expm_coeff_split``) runs entirely
-  in df arithmetic via ``df64.df_matmul`` (m x m, VPU scan — tiny),
+  in df arithmetic via ``df64.df_matmul`` (m x m elementwise scan — tiny),
 * the Krylov recombination is a df_matmul against the df basis.
 
 Reference anchor: exponentiator.hpp:87-173 (the f64 CPU engine whose
-per-apply state error is ~1e-15; this is the TPU-native way to match it).
+per-apply state error is ~1e-15; this is the f32-storage way to match it).
 Real symmetric operators only (the documented pv restriction); complex
 states go through the split (re, im) embedding like ``evolve_split``.
 """
@@ -172,7 +172,7 @@ def _df_small_expm_split(alpha_df, beta_df, a_re_df, a_im_df, *, squarings: int 
     Taylor base cases on T/2^squarings, then the (C, S, E) squaring chain —
     but every matrix product is a df64.df_matmul and every scalar a df pair,
     so the coefficients carry ~2^-48 relative error instead of f32's 2^-24.
-    m x m with m ~ 12-24: the VPU scans are microseconds.
+    m x m with m ~ 12-24: the elementwise scans are tiny.
     """
     al_hi, al_lo = alpha_df
     be_hi, be_lo = beta_df

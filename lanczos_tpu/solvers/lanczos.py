@@ -11,7 +11,7 @@ Two execution modes share the same numerics:
   (reference semantics: a solve *every* iteration, lambda_lanczos.hpp:267-277).
 * **fused** (:mod:`lanczos_tpu.solvers.lanczos_fused`): the whole iteration as
   one ``lax.while_loop`` with an on-device Sturm-bisection convergence test —
-  no host round-trips, for TPU-resident production runs.
+  no host round-trips, for device-resident production runs.
 
 Algorithmic contract mirrored from the reference ``run_iteration``
 (lambda_lanczos.hpp:216-322):
@@ -125,9 +125,9 @@ class LanczosConfig:
     precise_reductions: bool | None = None  # df64 alpha/beta; default: on for 32-bit dtypes
     # Fused engine: store the Krylov vectors as double-float (hi, lo) pairs
     # and run matvec/recurrence/convergence in df64 — reference-grade
-    # eigenvalue tolerances (~1e-11) in pure f32 TPU arithmetic.  Real
-    # dtypes only; needs an operator with matvec_df (Dense/DIA/BSR/Sum/
-    # Scaled).  Roughly doubles basis memory; matvec becomes VPU-bound.
+    # eigenvalue tolerances (~1e-11) with f32 storage.  Real dtypes only;
+    # needs an operator with matvec_df (Dense/DIA/BSR/Sum/Scaled).  Roughly
+    # doubles basis memory and the matvec's arithmetic.
     precise_vectors: bool = False
     # Re-orthogonalization passes per CGS application: 2 (CGS2, eps-level
     # orthogonality) or 1 (half the basis traffic; matches the reference's
@@ -135,15 +135,9 @@ class LanczosConfig:
     # auto: 1 for BOTH policies since round 3.  Rationale: with the basis
     # re-cleaned every iteration the incoming residual's overlaps are
     # already O(eps*kappa), so one classical pass lands at the same floor
-    # CGS2 does — measured identical eigenvalue errors on the n=2^20 chain
-    # on chip (experiments/full_passes_accuracy.py), identical zoo results
-    # on CPU f64, and the selective policy's single triggered pass was
-    # already validated at n=4.2M (113.0 -> 70.7 s, experiments/
-    # flagship_passes.py).  The full policy's iteration drops 2.30 -> 1.37
-    # ms/iter at n=2^20/cap=96 (experiments/fused_iter_breakdown.py) —
-    # each pass is 2 stream-rate basis sweeps (project + update; the chunk
-    # cannot persist in VMEM), so pass count IS the cost.  Set 2 explicitly
-    # for ill-conditioned custom operators.
+    # CGS2 does (identical zoo results on CPU f64).  Each pass is 2
+    # stream-rate basis sweeps (project + update), so pass count IS the
+    # cost.  Set 2 explicitly for ill-conditioned custom operators.
     reorth_passes: int | None = None
     # Fused mode: 'full' reorthogonalizes every iteration (reference
     # semantics); 'selective' tracks Simon's omega recurrence and runs the
@@ -186,10 +180,8 @@ class LanczosConfig:
     # iterations instead of every iteration (reference checks every iteration,
     # lambda_lanczos.hpp:267; >1 trades up-to-K extra matvecs for skipping the
     # O(m * bisect_iters) Sturm scans).  The device Sturm bisection is
-    # latency-bound at ~1.3-1.5 ms on a v5e (sequential bisection steps,
-    # experiments/fused_iter_split.py) — at n=2^20 it DOMINATES the 3.4 ms
-    # iteration, so amortizing it is the single largest iteration-rate win
-    # (full reorth 4.9 -> 3.6 ms/iter, selective 2.6 -> 1.4 ms/iter).
+    # latency-bound (sequential bisection steps), so amortizing it raises
+    # the iteration rate.
     # Checking every K is never premature: the relative-drift test then
     # spans K iterations, a strictly harder condition than the reference's
     # per-iteration drift.  None -> auto: 4 for the fused engines; 8 for

@@ -4,12 +4,12 @@ The reference library has no linear-solver layer (its eigsh analogue steers
 convergence with ``eigenvalue_offset`` only, lambda_lanczos.hpp:160-165).
 scipy's ``eigsh(sigma=...)`` however is a headline capability of the facade's
 target API: eigenvalues nearest an interior ``sigma`` via Lanczos on
-``(A - sigma I)^{-1}``.  A matrix-free TPU backend cannot factorize, so the
+``(A - sigma I)^{-1}``.  A matrix-free operator cannot be factorized, so the
 inverse is applied ITERATIVELY — and because ``A - sigma I`` is indefinite
 for interior shifts, the right Krylov solver is MINRES (Paige & Saunders
 1975), not CG.
 
-TPU-native design: one ``lax.while_loop`` carrying the two live Lanczos
+Design: one ``lax.while_loop`` carrying the two live Lanczos
 vectors, two direction vectors, and the Givens-rotation scalars — static
 shapes, no host syncs, jittable end-to-end (it nests inside the outer
 eigensolver's own device loops).  Each iteration is one matvec + a handful
@@ -32,11 +32,10 @@ __all__ = ["minres"]
 
 
 def _dot_exact(v, w):
-    """<v, w> as an elementwise multiply-reduce: on TPU the default f32
-    dot/vdot contraction runs as bf16 MXU passes (see CLAUDE.md — it floors
-    scalars at ~1e-3-level error), while an elementwise product + sum is
-    exact f32 on the VPU.  The MINRES alpha/beta feed the Givens recurrence
-    directly, so they must not lose mantissa bits."""
+    """<v, w> as an elementwise multiply-reduce: an accelerator's default
+    f32 dot may run reduced-precision passes (TF32 on the GPU), while an
+    elementwise product + sum is exact f32.  The MINRES alpha/beta feed the
+    Givens recurrence directly, so they must not lose mantissa bits."""
     vc = jnp.conj(v) if is_complex_dtype(v.dtype) else v
     return jnp.sum(vc * w)
 

@@ -1,7 +1,7 @@
 """Checkpoint / resume for long-running solves.
 
 The reference has no checkpointing (SURVEY.md §5: engines are stateless
-between ``run()`` calls).  For production TPU runs — large n, many deflated
+between ``run()`` calls).  For production runs — large n, many deflated
 restarts — the natural checkpoint boundary is *between restarts*: the state
 is exactly the accepted eigenpairs (the :class:`EigenPairManager` content)
 plus the iteration counts.  Everything inside one restart is rebuilt in

@@ -52,9 +52,8 @@ def gershgorin_bound(op) -> float:
         return float(jnp.max(sums))
     elif isinstance(op, DIAOperator):
         # |row sums| over the stored diagonals, masking off-matrix entries.
-        # Accumulate in f64 only when the runtime has it (the x64-disabled
-        # TPU runtime silently truncates a requested f64 to f32 with a
-        # warning); a bound must never UNDERestimate, so the f32 path
+        # Accumulate in f64 only when x64 is enabled (otherwise jax
+        # silently truncates a requested f64 to f32 with a warning); a bound must never UNDERestimate, so the f32 path
         # inflates by a few ulps to cover accumulation rounding.
         n = op.n
         acc_dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
@@ -70,8 +69,7 @@ def gershgorin_bound(op) -> float:
         return float(jnp.max(total)) * pad
     elif isinstance(op, BSROperator):
         # |row sums| of the padded tiles == row sums of A (padding is zero).
-        s_axes = (2, 3) if op.layout == "rmsk" else (1, 3)  # sum over (S, bk)
-        sums = jnp.sum(jnp.abs(op.blocks), axis=s_axes).reshape(-1)  # (R*bm,)
+        sums = jnp.sum(jnp.abs(op.blocks), axis=(1, 3)).reshape(-1)  # over (S, bk) -> (R*bm,)
         return float(jnp.max(sums[: op.n]))
     elif isinstance(op, SumOperator):
         # Triangle inequality: sum of the parts' bounds is a valid bound.

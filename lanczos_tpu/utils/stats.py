@@ -1,7 +1,7 @@
 """Observability: iteration stats and profiler hooks.
 
 The reference's only built-in observability is per-restart iteration counts
-(``getIterationCounts``, lambda_lanczos.hpp:187, :412-414).  The TPU build
+(``getIterationCounts``, lambda_lanczos.hpp:187, :412-414).  This library
 keeps that and adds wall-clock timing plus optional ``jax.profiler`` trace
 annotation around the hot loop.
 """

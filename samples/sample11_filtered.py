@@ -6,8 +6,8 @@ polynomial of the operator: B = T_p((A - c)/e) damps the unwanted part of
 the spectrum into [-1, 1] and amplifies a mu-band at the wanted edge like
 cosh(p*sqrt(2 mu / e)).  Lanczos on B converges in tens of iterations with
 a tiny basis, so the dominant cost becomes the (cheap, fusable) matvec
-chain instead of streaming the Krylov basis from HBM — the right trade at
-production n on a TPU (see BASELINE.md).
+chain instead of streaming the Krylov basis from device memory — the right
+trade at production n.
 
 Accuracy contract: eigenvalue error ~ mu, and the band [edge, edge+mu]
 must contain every wanted eigenvalue (a miss is detected from the B-space
@@ -60,9 +60,7 @@ assert all(abs(v - e) < 2e-4 for v, e in zip(vals, exact))
 # vectors and its Ritz values map back through the analytic inverse of the
 # filter polynomial — the filter's steepness attenuates B-space error by
 # 1/T_p' ~ 1e-5..1e-6 on the way back.  Fully automatic windowing (a scout
-# pass measures the target spread).  Measured on the v5e: n=4000 chain,
-# 3 lowest at the reference C++'s own eps=1e-12 problem — 1.2 s vs the
-# reference's 905.5 s (BASELINE.md round-4 table).
+# pass measures the target spread).
 pvals, pvecs, pinfo = filtered_lanczos(op, num_eigs=3, lo=-2.0, hi=2.0, precise=True)
 print("precise eigenvalues: ", [f"{v:.15f}" for v in pvals])
 print("errors vs analytic:  ", [f"{abs(v - e):.2e}" for v, e in zip(pvals, exact)])

@@ -12,7 +12,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # repo root
 
 # Samples default to CPU f64 for exact-tolerance output; set
-# LT_SAMPLE_PLATFORM=tpu (or any jax platform) to run on an accelerator.
+# LT_SAMPLE_PLATFORM=cuda (or any jax platform) to run on an accelerator.
 _platform = os.environ.get("LT_SAMPLE_PLATFORM", "cpu")
 os.environ["JAX_PLATFORMS"] = _platform
 import jax

@@ -1,6 +1,6 @@
-"""TPU-native sample with no reference counterpart: a row-partitioned sparse
+"""Sample with no reference counterpart: a row-partitioned sparse
 Hamiltonian solved over a device mesh (8 virtual CPU devices here; the same
-code runs unchanged on a TPU pod slice).
+code runs unchanged on several GPUs).
 """
 
 import os
@@ -9,7 +9,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # repo root
 
-# Defaults to CPU with 8 virtual devices; set LT_SAMPLE_PLATFORM=tpu to run
+# Defaults to CPU with 8 virtual devices; set LT_SAMPLE_PLATFORM=cuda to run
 # on real chips instead (then XLA_FLAGS is left alone).
 _platform = os.environ.get("LT_SAMPLE_PLATFORM", "cpu")
 os.environ["JAX_PLATFORMS"] = _platform

@@ -39,9 +39,8 @@ for step in range(5):
     spread = float(jnp.sum(jnp.abs(psi) ** 2 * (jnp.arange(n) - n // 2) ** 2) ** 0.5)
     print(f"t={dt * (step + 1):4.1f}  norm={norm:.15f}  spread={spread:7.3f}  krylov_iters={iters}")
 
-# TPU-native path: the same evolution fully device-resident and in REAL
-# arithmetic (split complex — complex dtypes are unavailable on some TPU
-# runtimes): all steps in ONE jitted program, zero host syncs between steps.
+# Device-resident path: the same evolution in REAL arithmetic (split
+# complex): all steps in ONE jitted program, zero host syncs between steps.
 expo_r = Exponentiator(h, dtype=jnp.float64)
 start = np.zeros(n)
 start[n // 2] = 1.0
@@ -68,10 +67,7 @@ print(f"precise (df64) evolve:  dtype={pre_re.dtype}, overlap with f64 step-by-s
 
 # Chebyshev propagator: the WHOLE evolution as one ~|t*e|-term matvec chain
 # (solvers/cheby_expm.py, no reference counterpart) — no per-step Krylov
-# builds, O(1) extra memory, and a grid of times shares one chain.  Measured
-# on the v5e at n=2^20, total time t=50: 0.17 s (f32, angle 3.0e-7) and
-# 0.97 s (precise=True df64 chain, angle 3.9e-14) vs 1.3-1.4 s / 8.3e-7 for
-# the 100-step Krylov evolve (BASELINE.md round 4).
+# builds, O(1) extra memory, and a grid of times shares one chain.
 (ch_re, ch_im), n_terms = expo_p.run_chebyshev(
     -1j * dt * 5, start, lo=-2.0, hi=2.0)
 overlap_c = abs(np.vdot(np.asarray(psi), np.asarray(ch_re) + 1j * np.asarray(ch_im)))

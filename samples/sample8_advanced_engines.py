@@ -1,4 +1,4 @@
-"""Advanced engines sample (TPU-first extensions; no reference counterpart):
+"""Advanced engines sample (extensions; no reference counterpart):
 
 * block Lanczos — a triple-degenerate eigenvalue captured in one restart,
 * thick restart (TRLan) — full accuracy on a clustered spectrum under a
@@ -70,8 +70,8 @@ print("block+thick:", " ".join(f"{v:.12g}" for v in sorted(vals)),
       f"{len(eng.iteration_counts)} deflation round(s))")
 
 # --- precise_vectors + thick: reference-grade accuracy, bounded memory -------
-# Double-float (hi, lo) Krylov basis carried across thick-restart cycles: on
-# an f32-native TPU this reaches the reference's f64 tolerance regime
+# Double-float (hi, lo) Krylov basis carried across thick-restart cycles: in
+# f32 storage this reaches the reference's f64 tolerance regime
 # (~1e-13, lambda_lanczos.hpp:150) with a FIXED 40-row basis.  On the CPU
 # sample path it runs the same engine in f32 storage.
 eng = LambdaLanczos(jnp.asarray(chain, jnp.float32), find_maximum=False,

@@ -2,7 +2,7 @@
 
 The reference library only steers convergence with a spectral shift
 (``eigenvalue_offset``, lambda_lanczos.hpp:160-165) — extremal eigenvalues
-only.  The TPU framework adds true shift-invert: eigenvalues NEAREST an
+only.  This framework adds true shift-invert: eigenvalues NEAREST an
 interior ``sigma`` via Lanczos on ``(A - sigma I)^{-1}``, with the inverse
 applied matrix-free by a jittable MINRES loop (no factorization — works for
 any LinearOperator, any size).
@@ -52,8 +52,7 @@ print(f"minres solve: info={info}, true residual "
 # transform instead of shift-invert: no inner MINRES (and sigma exactly ON
 # an eigenvalue — fatal for any shift-invert — is the best-conditioned
 # case), with precise (inverse-map) values selected automatically at tight
-# tol.  Measured on the v5e: 4 interior eigenvalues of the n=4000 chain at
-# 2.7e-12 in 2.2 s warm (BASELINE.md).
+# tol.
 wf, vf = eigsh(jnp.asarray(a), k=4, sigma=sigma, which="LM", method="filtered")
 print("filtered interior:", " ".join(f"{x:.10g}" for x in wf))
 print("max |err| vs dense eigensolver:", f"{np.abs(np.sort(wf) - nearest).max():.2e}")

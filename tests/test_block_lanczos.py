@@ -1,4 +1,4 @@
-"""Block Lanczos tests (TPU-first extension; validated against numpy and the
+"""Block Lanczos tests (an extension; validated against numpy and the
 scalar engine on the reference matrix zoo)."""
 
 import numpy as np

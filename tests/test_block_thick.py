@@ -391,7 +391,7 @@ def test_fixed_seed_identical_rows_repaired():
 
 
 def test_budget_stall_distinct_targets_hint():
-    """Engine-economics rule encoded (BASELINE.md flagship A/B): when a
+    """Engine-economics rule encoded: when a
     block>1 round budget-stalls while the best Ritz values come out DISTINCT
     (the characterized 'wrong tool' case — block thick needs block_size x
     the row budget for equal convergence depth on distinct targets), the

@@ -1,4 +1,4 @@
-"""Checkpoint/resume tests (TPU-native addition; reference has none,
+"""Checkpoint/resume tests (an addition; reference has none,
 SURVEY.md §5)."""
 
 import numpy as np

@@ -1,9 +1,8 @@
 """Persistent compilation cache wiring (utils/compile_cache.py).
 
-The TPU-measured payoff (446 s -> 0.85 s cross-process, see
-experiments/compile_cache_probe.py) can't run in CI; these tests pin the
-wiring: config is set, the directory is created, and a compiled program
-actually lands in the cache.
+Rule under test: with ``JAX_COMPILATION_CACHE_DIR`` set the cache lands
+there and nowhere else; unset, it lands at one fixed directory inside the
+checkout.
 """
 
 import os
@@ -24,9 +23,7 @@ def _pristine_cache_singleton():
     writes for every later compile in the process — against this test's
     now-deleted tmp_path.  In an in-process full-suite run (the coverage
     gate's ``-n 0``) one of those stray ``executable.serialize()`` calls
-    (the 8-device multislice program) segfaults inside jaxlib.  Observed as
-    a deterministic coverage-run crash in test_sharded; the xdist run never
-    sees it because these files land in different workers.
+    segfaults inside jaxlib.
     """
     yield
     jax.config.update("jax_compilation_cache_dir", None)
@@ -35,35 +32,44 @@ def _pristine_cache_singleton():
     _cc.reset_cache()
 
 
-def test_enable_sets_config_and_persists(tmp_path):
+def _compile_something():
+    @jax.jit
+    def f(x):
+        return jnp.sin(x) @ x.T
+
+    f(jnp.ones((64, 64))).block_until_ready()
+
+
+def test_enable_sets_config_and_persists(monkeypatch, tmp_path):
     d = str(tmp_path / "jaxcache")
-    got = compile_cache.enable_compilation_cache(d, min_compile_time_secs=0.0)
-    try:
-        assert got == d and os.path.isdir(d)
-        assert jax.config.jax_compilation_cache_dir == d
-
-        @jax.jit
-        def f(x):
-            return jnp.sin(x) @ x.T
-
-        _ = f(jnp.ones((64, 64))).block_until_ready()
-        entries = [p for p in os.listdir(d)]
-        assert entries, "compiled executable was not persisted"
-    finally:
-        jax.config.update("jax_compilation_cache_dir", None)
+    monkeypatch.setenv(compile_cache.ENV_VAR, d)
+    got = compile_cache.enable_compilation_cache()
+    assert got == d and os.path.isdir(d)
+    assert jax.config.jax_compilation_cache_dir == d
+    _compile_something()
+    assert os.listdir(d), "compiled executable was not persisted"
 
 
 def test_default_dir_honors_env(monkeypatch, tmp_path):
-    monkeypatch.setenv(compile_cache._ENV_VAR, str(tmp_path / "envcache"))
-    assert compile_cache.default_cache_dir() == str(tmp_path / "envcache")
-    try:
-        assert compile_cache.maybe_enable_from_env() == str(tmp_path / "envcache")
-    finally:
-        jax.config.update("jax_compilation_cache_dir", None)
-    monkeypatch.delenv(compile_cache._ENV_VAR)
-    assert compile_cache.default_cache_dir().endswith(os.path.join(".cache", "lanczos_tpu", "jax"))
+    """With the variable set, the in-checkout directory is never touched."""
+    env_dir = str(tmp_path / "envcache")
+    repo_dir = str(tmp_path / "repo_cache")
+    monkeypatch.setenv(compile_cache.ENV_VAR, env_dir)
+    monkeypatch.setattr(compile_cache, "REPO_CACHE_DIR", repo_dir)
+    assert compile_cache.enable_compilation_cache() == env_dir
+    _compile_something()
+    assert os.listdir(env_dir)
+    assert not os.path.exists(repo_dir)
 
 
-def test_maybe_enable_noop_without_env(monkeypatch):
-    monkeypatch.delenv(compile_cache._ENV_VAR, raising=False)
-    assert compile_cache.maybe_enable_from_env() is None
+def test_unset_env_uses_checkout_dir(monkeypatch, tmp_path):
+    """Unset, the cache goes to the fixed ``<checkout>/.jax_cache``."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(compile_cache.__file__)))
+    assert compile_cache.REPO_CACHE_DIR == os.path.join(os.path.dirname(repo_root), ".jax_cache")
+    monkeypatch.delenv(compile_cache.ENV_VAR, raising=False)
+    repo_dir = str(tmp_path / "repo_cache")
+    monkeypatch.setattr(compile_cache, "REPO_CACHE_DIR", repo_dir)
+    assert compile_cache.enable_compilation_cache() == repo_dir
+    assert jax.config.jax_compilation_cache_dir == repo_dir
+    _compile_something()
+    assert os.listdir(repo_dir)

@@ -101,10 +101,10 @@ def test_bsr_pack_numpy_fallback(monkeypatch):
 
     n = 256
     rows, cols, vals = _chain_ops(n, np.float64)
-    ref = BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float64, use_pallas=False)
+    ref = BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float64)
 
     monkeypatch.setattr(host_kernels, "available", lambda: False)
-    alt = BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float64, use_pallas=False)
+    alt = BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float64)
     np.testing.assert_array_equal(np.asarray(ref.blocks), np.asarray(alt.blocks))
     np.testing.assert_array_equal(np.asarray(ref.col_blocks), np.asarray(alt.col_blocks))
 

@@ -115,8 +115,7 @@ def test_f32_meets_reference_overlap_tolerance():
     in the output's angle error, and the convergence replay runs on host in
     f64 from the streamed alpha/beta, so the f32 floor (~1e-7 vector error)
     lands at ~3e-15 overlap with the same iteration count as an f64 build.
-    This is the TPU-relevant accuracy statement (BASELINE.md exponentiator
-    row) — experiments/tpu_exponentiator_zoo.py replays it on the real chip."""
+    This is the f32-storage accuracy statement for the exponentiator."""
     n = 100
     _, dense = _hopping_ring(n)
     inp = _test_input(n)
@@ -194,7 +193,7 @@ def test_fused_f32_breakdown_terminates():
 
 def test_split_complex_evolution_matches_complex():
     """run_split (two real builds, complex coefficients on host) agrees with
-    the native-complex path — the TPU form of exp(-i t H) psi."""
+    the native-complex path — the split-real form of exp(-i t H) psi."""
     n = 80
     i = np.arange(n - 1)
     h = np.zeros((n, n))
@@ -400,9 +399,7 @@ def test_chebyshev_propagator_matches_expm():
 
 def test_chebyshev_propagator_precise_df64():
     """run_chebyshev(precise=True): the df64 chain reaches f64-grade
-    fidelity from an f32 operator (measured on chip: angle 3.9e-14 after
-    a t=50 evolution at n=2^20 in 0.97 s — vs evolve(precise=True)'s
-    3.1e-12 at ~13 s; BASELINE.md round 4)."""
+    fidelity from an f32 operator."""
     import scipy.linalg as sla
 
     from lanczos_tpu import DIAOperator

@@ -565,8 +565,8 @@ def test_thick_restart_fused_multiroot():
 
 
 def test_thick_fused_complex():
-    """Fused-cycle thick restart with complex storage (CPU; on TPU complex
-    problems route through ops.hermitian_split instead)."""
+    """Fused-cycle thick restart with complex storage (the facade routes
+    complex problems through ops.hermitian_split instead)."""
     n = 60
     rng = np.random.default_rng(29)
     h = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
@@ -583,7 +583,7 @@ def test_thick_fused_complex():
 
 def test_hermitian_split_with_thick_restart():
     """Composition: complex Hermitian via real embedding + bounded-memory
-    thick restart — the full TPU-production configuration, on CPU."""
+    thick restart — the full split-real production configuration, on CPU."""
     from lanczos_tpu.ops.hermitian_split import solve_hermitian
 
     n = 40

@@ -55,7 +55,7 @@ def test_bcgs_dyn_matches_masked_cgs(dtype, k, monkeypatch):
     """orthogonalize_bcgs_dyn over live rows [0, k) must agree with the
     masked full-capacity CGS2 (chunk boundaries, clamping, k=0, k=cap).
     The chunked path is accelerator-only, so force it under the CPU tests."""
-    monkeypatch.setattr(linalg.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(linalg.jax, "default_backend", lambda: "gpu")
     cap, n = 64, 96
     rng = np.random.default_rng(int(k) + 7)
 
@@ -113,7 +113,7 @@ def test_bcgs_dyn_coeffs_matches_masked_cgs(dtype, k, monkeypatch):
         want = want - c @ basis_j
         c_want = c_want + c
 
-    for backend in ("cpu", "tpu"):
+    for backend in ("cpu", "gpu"):
         monkeypatch.setattr(linalg.jax, "default_backend", lambda b=backend: b)
         got, c_got = linalg.orthogonalize_bcgs_dyn_coeffs(v, basis_j, k)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-12)
@@ -121,26 +121,31 @@ def test_bcgs_dyn_coeffs_matches_masked_cgs(dtype, k, monkeypatch):
         assert np.all(np.asarray(c_got)[k:] == 0)
 
 
-@pytest.mark.parametrize("k", [0, 1, 63, 64, 100, 128])
-def test_pallas_cgs_interpret_matches_cgs(k):
-    """The single-drain Pallas CGS pass (interpreter mode on CPU) must match
-    one classical masked-GS pass: live-row masking, the phase-0 copy-through
-    of the aliased v buffer, and the ragged final chunk (cap=129 not a
-    multiple of 64) are the logic under test."""
-    from lanczos_tpu.ops import pallas_cgs
-
-    cap, n = 129, 256
-    rng = np.random.default_rng(k + 3)
+def _f32_live_basis(k, cap, n, seed):
+    """f32 basis with orthonormal rows [0, k) and zeros elsewhere."""
+    rng = np.random.default_rng(seed)
     raw = rng.standard_normal((max(k, 1), n))
     q = np.linalg.qr(raw.T)[0].T[:k] if k else raw[:0]
     basis = np.zeros((cap, n), np.float32)
     basis[:k] = q
+    return basis, rng
+
+
+@pytest.mark.parametrize("k", [0, 1, 63, 64, 100, 128])
+def test_bcgs_dyn_single_pass_matches_f64_cgs(k, monkeypatch):
+    """One chunked BCGS pass (the accelerator path, forced here) on f32 data
+    must match one classical Gram-Schmidt pass in float64: live-row masking,
+    the clamped ragged final chunk (cap=129 is not a multiple of 64) and
+    k=0 are the logic under test."""
+    monkeypatch.setattr(linalg.jax, "default_backend", lambda: "gpu")
+    cap, n = 129, 256
+    basis, rng = _f32_live_basis(k, cap, n, k + 3)
     v = rng.standard_normal(n).astype(np.float32)
     if k:
         v = v + 10.0 * basis[:min(k, 4)].sum(axis=0)
 
     got = np.asarray(
-        pallas_cgs.cgs_pass(jnp.asarray(v), jnp.asarray(basis), k, interpret=True),
+        linalg.orthogonalize_bcgs_dyn(jnp.asarray(v), jnp.asarray(basis), k, passes=1),
         np.float64,
     )
     c = basis[:k].astype(np.float64) @ v.astype(np.float64)
@@ -149,25 +154,21 @@ def test_pallas_cgs_interpret_matches_cgs(k):
 
 
 @pytest.mark.parametrize("k", [0, 1, 63, 64, 100, 128])
-def test_pallas_cgs_block_interpret_matches_cgs(k):
-    """The block-RHS Pallas CGS pass (interpreter mode): per-vector results
-    must match the classical masked-GS pass of each block row — masking,
-    aliased copy-through, ragged final chunk, and the shared-basis-stream
-    projection/update dots are the logic under test."""
-    from lanczos_tpu.ops import pallas_cgs
+def test_bcgs_block_matches_f64_cgs(k, monkeypatch):
+    """The block form (block_thick._bcgs_block, chunked accelerator path
+    forced here): per-vector results must match the float64 classical
+    masked-GS pass of each block row."""
+    from lanczos_tpu.solvers import block_thick
 
+    monkeypatch.setattr(block_thick.jax, "default_backend", lambda: "gpu")
     cap, n, b = 129, 256, 3
-    rng = np.random.default_rng(k + 11)
-    raw = rng.standard_normal((max(k, 1), n))
-    q = np.linalg.qr(raw.T)[0].T[:k] if k else raw[:0]
-    basis = np.zeros((cap, n), np.float32)
-    basis[:k] = q
+    basis, rng = _f32_live_basis(k, cap, n, k + 11)
     vblk = rng.standard_normal((b, n)).astype(np.float32)
     if k:
         vblk = vblk + 10.0 * basis[: min(k, 4)].sum(axis=0)[None, :]
 
     got = np.asarray(
-        pallas_cgs.cgs_pass_block(jnp.asarray(vblk), jnp.asarray(basis), k, interpret=True),
+        block_thick._bcgs_block(jnp.asarray(vblk), jnp.asarray(basis), k, passes=1),
         np.float64,
     )
     c = basis[:k].astype(np.float64) @ vblk.astype(np.float64).T  # (k, b)

@@ -6,8 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lanczos_tpu.ops.operators import DenseOperator, COOOperator, BSROperator, FunctionOperator, as_operator
-from lanczos_tpu.ops import pallas_spmv
+from lanczos_tpu.ops.operators import DenseOperator, COOOperator, BSROperator, FunctionOperator, as_operator, bsr_matvec
 
 
 def _random_sparse(n, density, seed, dtype=np.float64):
@@ -80,82 +79,61 @@ def test_bisect_fallback_no_recursion(monkeypatch):
         assert np.linalg.norm(r) < 1e-10
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("n,bm,bk", [(64, 8, 128), (200, 8, 128), (384, 16, 128)])
-def test_bsr_matches_dense(n, bm, bk, use_pallas):
-    a = _random_sparse(n, 0.1, 4, dtype=np.float32)
+def test_bsr_matches_dense(n, bm, bk, dtype):
+    a = _random_sparse(n, 0.1, 4, dtype=dtype)
     rows, cols = np.nonzero(a)
-    op = BSROperator.from_coo(rows, cols, a[rows, cols], n, bm=bm, bk=bk, use_pallas=use_pallas)
-    assert op.layout == ("rmsk" if use_pallas else "rsmk")
-    assert (op.bm, op.bk) == (bm, bk)
-    x = np.random.default_rng(5).normal(size=n).astype(np.float32)
+    op = BSROperator.from_coo(rows, cols, a[rows, cols], n, bm=bm, bk=bk, dtype=dtype)
+    assert (op.bm, op.bk) == (bm, bk) and op.dtype == np.dtype(dtype)
+    x = np.random.default_rng(5).normal(size=n).astype(dtype)
     got = np.asarray(op.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(got, a @ x, rtol=1e-4, atol=1e-4)
+    tol = 1e-4 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(got, a @ x, rtol=tol, atol=tol)
 
 
 def test_bsr_reference_kernel_matches_einsum_path():
+    """bsr_matvec on the packed tiles of the full padded vector equals the
+    dense product (padding rows come out zero)."""
     n = 128
     a = _random_sparse(n, 0.15, 6, dtype=np.float32)
     rows, cols = np.nonzero(a)
-    op = BSROperator.from_coo(rows, cols, a[rows, cols], n, use_pallas=False)
+    op = BSROperator.from_coo(rows, cols, a[rows, cols], n)
     n_pad = op.n_padded
     x = jnp.asarray(np.random.default_rng(7).normal(size=n_pad).astype(np.float32))
-    y = pallas_spmv.bsr_matvec_reference(op.blocks, op.col_blocks, x)
+    y = bsr_matvec(op.blocks, op.col_blocks, x)
     expect = np.zeros(n_pad, dtype=np.float64)
     expect[:n] = a @ np.asarray(x)[:n]
     np.testing.assert_allclose(np.asarray(y), expect, rtol=1e-4, atol=1e-4)
 
 
-def test_bsr_pallas_interpret_mode():
-    # Run the round-1 (rsmk) Pallas kernel in interpreter mode on CPU to pin
-    # down the kernel logic without TPU hardware.
-    n = 256
-    a = _random_sparse(n, 0.1, 8, dtype=np.float32)
+@pytest.mark.parametrize(
+    "n,bm,bk,empty_rows",
+    [(1, 128, 128, False), (127, 128, 128, False), (129, 128, 128, True), (300, 8, 128, True), (77, 16, 8, True)],
+)
+def test_bsr_odd_n_padding_and_empty_rows(n, bm, bk, empty_rows):
+    """Odd n (padded up to the tile grid), rows with no entries at all (their
+    block rows hold only padding tiles), against a float64 dense product;
+    matvec_df on the same operator reaches float64 accuracy."""
+    rng = np.random.default_rng(n)
+    a = _random_sparse(n, 0.2, n + 1, dtype=np.float32)
+    a[np.diag_indices(n)] = 1.0
+    if empty_rows and n > 2:
+        dead = rng.choice(n, size=max(1, n // 4), replace=False)
+        a[dead, :] = 0.0
+        a[:, dead] = 0.0
     rows, cols = np.nonzero(a)
-    op = BSROperator.from_coo(rows, cols, a[rows, cols], n, use_pallas=False)
-    n_pad = op.n_padded
-    x = jnp.asarray(np.random.default_rng(9).normal(size=n_pad).astype(np.float32))
-
-    y = np.asarray(pallas_spmv.bsr_matvec_pallas(op.blocks, op.col_blocks, x, interpret=True))
-    expect = np.zeros(n_pad)
-    expect[:n] = a @ np.asarray(x)[:n]
-    np.testing.assert_allclose(y, expect, rtol=1e-4, atol=1e-4)
-
-
-def test_bsr_pallas_t_interpret_mode():
-    # The production (rmsk, long-contraction) kernel, interpreter mode on CPU.
-    n = 300
-    a = _random_sparse(n, 0.1, 8, dtype=np.float32)
-    rows, cols = np.nonzero(a)
-    op = BSROperator.from_coo(rows, cols, a[rows, cols], n)  # default: rmsk
-    assert op.layout == "rmsk" and op._pallas_ok()
-    n_pad = op.n_padded
-    x = jnp.asarray(np.random.default_rng(9).normal(size=n_pad).astype(np.float32))
-
-    y = np.asarray(pallas_spmv.bsr_matvec_pallas_t(op.blocks, op.col_blocks, x, interpret=True))
-    expect = np.zeros(n_pad)
-    expect[:n] = a @ np.asarray(x)[:n]
-    np.testing.assert_allclose(y, expect, rtol=1e-4, atol=1e-4)
-
-
-def test_bsr_rmsk_df_and_vmem_guard():
-    # matvec_df agrees between the two storage layouts, and the VMEM guard
-    # routes oversized operators off the Pallas path.
-    n = 200
-    a = _random_sparse(n, 0.1, 4, dtype=np.float32)
-    rows, cols = np.nonzero(a)
-    op_t = BSROperator.from_coo(rows, cols, a[rows, cols], n)
-    op_c = BSROperator.from_coo(rows, cols, a[rows, cols], n, use_pallas=False)
-    x = np.random.default_rng(3).normal(size=n).astype(np.float32)
-    hi_t, lo_t = op_t.matvec_df(jnp.asarray(x), jnp.zeros(n, jnp.float32))
-    hi_c, lo_c = op_c.matvec_df(jnp.asarray(x), jnp.zeros(n, jnp.float32))
-    np.testing.assert_array_equal(np.asarray(hi_t), np.asarray(hi_c))
-    np.testing.assert_array_equal(np.asarray(lo_t), np.asarray(lo_c))
-    np.testing.assert_allclose(
-        np.asarray(hi_t, np.float64) + np.asarray(lo_t, np.float64), a @ x, rtol=1e-6, atol=1e-6
-    )
-    # guard: past the VMEM budget _pallas_ok must flip off
-    assert not pallas_spmv.pallas_t_fits(8192, 8, 128, 128, 8192 * 128)
+    op = BSROperator.from_coo(rows, cols, a[rows, cols], n, bm=bm, bk=bk)
+    assert op.n_padded >= n and op.n_padded % bm == 0 and op.n_padded % bk == 0
+    x = rng.standard_normal(n).astype(np.float32)
+    want = a.astype(np.float64) @ x.astype(np.float64)
+    got = np.asarray(op.matvec(jnp.asarray(x)), np.float64)
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if empty_rows and n > 2:
+        assert np.all(got[dead] == 0.0)
+    hi, lo = op.matvec_df(jnp.asarray(x), jnp.zeros(n, jnp.float32))
+    np.testing.assert_allclose(np.asarray(hi, np.float64) + np.asarray(lo, np.float64), want, rtol=1e-12, atol=1e-12)
 
 
 def test_function_operator_and_coercion():
@@ -288,7 +266,7 @@ def _stencil_ops(n):
 )
 def test_stencil_eigensolve_every_operator(kind):
     """Backend-equivalence: the same solve through every operator
-    representation (the TPU analogue of the reference's three-binaries
+    representation (the analogue of the reference's three-binaries
     trick, test/CMakeLists.txt:5-12)."""
     from lanczos_tpu import LambdaLanczos
     from lanczos_tpu.utils.random import fixed_seed_initializer
@@ -327,8 +305,8 @@ def test_operator_algebra():
 
 
 def test_hermitian_split_solve():
-    """Complex Hermitian eigenproblem in pure real arithmetic (the TPU path
-    for complex matrices): real embedding + pair folding."""
+    """Complex Hermitian eigenproblem in pure real arithmetic (the facade's
+    path for complex matrices): real embedding + pair folding."""
     from lanczos_tpu.ops.hermitian_split import HermitianSplitOperator, solve_hermitian
     from lanczos_tpu.ops.operators import DenseOperator
     from lanczos_tpu.utils.random import fixed_seed_initializer
@@ -498,8 +476,8 @@ def test_scipy_compat_minres():
 
 
 def test_shift_invert_fused_engine_nesting():
-    """mode='fused' (the TPU default): the MINRES while_loop nests inside the
-    fused engine's while_loop — the exact compile structure the chip runs."""
+    """mode='fused' (the accelerator default): the MINRES while_loop nests
+    inside the fused engine's while_loop — the compile structure the GPU runs."""
     from lanczos_tpu.scipy_compat import eigsh
 
     rng = np.random.default_rng(0)

@@ -1,7 +1,7 @@
 """Multi-chip (8 virtual CPU devices) sharded-path tests.
 
 The reference has no distributed tests to mirror (single-process GTest only,
-SURVEY.md §4); these validate the TPU-native addition: row-partitioned
+SURVEY.md §4); these validate the addition: row-partitioned
 operators + GSPMD/shard_map solves agree with the single-device path to
 solver precision.
 """
@@ -252,19 +252,19 @@ def test_sharded_dia_complex(mesh):
 
 
 def test_multislice_sparse_solve():
-    """A stencil operator partitioned over the COMBINED ('slices', 'rows')
-    axes: halo ppermutes ride ICI inside a slice and cross DCN only at the
-    slice boundary; the full Lanczos solve must match the analytic chain
-    eigenvalue (VERDICT round-1 weak item 8 — multislice exercised by a
-    real sparse solve, not just mesh construction)."""
-    from lanczos_tpu.parallel.mesh import make_multislice_mesh
+    """A stencil operator partitioned over the COMBINED ('hosts', 'rows')
+    axes: halo ppermutes stay inside a host and cross hosts only at the
+    host boundary; the full Lanczos solve must match the analytic chain
+    eigenvalue (the 2D mesh exercised by a real sparse solve, not just
+    mesh construction)."""
+    from lanczos_tpu.parallel.mesh import make_multihost_mesh
     from lanczos_tpu.parallel.sharded import ShardedDIAOperator
 
-    mesh2d = make_multislice_mesh(2)
-    assert dict(mesh2d.shape) == {"slices": 2, "rows": 4}
+    mesh2d = make_multihost_mesh(2)
+    assert dict(mesh2d.shape) == {"hosts": 2, "rows": 4}
     n = 1024
     off = np.full(n, -1.0)
-    op = ShardedDIAOperator.from_diagonals([-1, 1], [off, off], n, mesh2d, axis_name=("slices", "rows"))
+    op = ShardedDIAOperator.from_diagonals([-1, 1], [off, off], n, mesh2d, axis_name=("hosts", "rows"))
     x = np.random.default_rng(0).standard_normal(n)
     d = np.diag(off[: n - 1], 1) + np.diag(off[: n - 1], -1)
     np.testing.assert_allclose(np.asarray(op.matvec(jnp.asarray(x))), d @ x, atol=1e-12)
@@ -276,16 +276,16 @@ def test_multislice_sparse_solve():
 
 
 def test_multislice_mesh_cpu_fallback():
-    """2D (slices, rows) mesh construction; batched solves over the dcn axis
-    via vmap with the rows axis carrying the per-solve collectives."""
+    """2D (hosts, rows) mesh construction; batched solves over the hosts
+    axis via vmap with the rows axis carrying the per-solve collectives."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from lanczos_tpu.parallel.mesh import make_multislice_mesh
+    from lanczos_tpu.parallel.mesh import make_multihost_mesh
     from lanczos_tpu.ops.operators import DenseOperator
     from lanczos_tpu.solvers.lanczos_fused import fused_krylov
 
-    m2 = make_multislice_mesh(2)
-    assert m2.axis_names == ("slices", "rows")
+    m2 = make_multihost_mesh(2)
+    assert m2.axis_names == ("hosts", "rows")
     assert m2.devices.shape == (2, 4)
 
     n, bsz = 32, 2
@@ -295,8 +295,8 @@ def test_multislice_mesh_cpu_fallback():
     v0 = rng.standard_normal((bsz, n))
     v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
 
-    a_s = jax.device_put(jnp.asarray(a), NamedSharding(m2, P("slices", "rows", None)))
-    v_s = jax.device_put(jnp.asarray(v0), NamedSharding(m2, P("slices", "rows")))
+    a_s = jax.device_put(jnp.asarray(a), NamedSharding(m2, P("hosts", "rows", None)))
+    v_s = jax.device_put(jnp.asarray(v0), NamedSharding(m2, P("hosts", "rows")))
     defl = jnp.zeros((bsz, 1, n)); mask = jnp.zeros((bsz, 1))
 
     def one(a_i, v_i, d_i, m_i):
@@ -347,7 +347,7 @@ def test_sharded_bsr_matvec_df_matches_single_device(mesh):
 
     from lanczos_tpu.ops.operators import BSROperator
 
-    single = BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float32, use_pallas=False)
+    single = BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float32)
     rng = np.random.default_rng(5)
     xh = rng.uniform(-1, 1, n).astype(np.float32)
     xl = (rng.uniform(-1, 1, n) * 1e-8).astype(np.float32)
@@ -386,7 +386,7 @@ def test_pv_thick_sharded_bsr_mesh(mesh):
 
     from lanczos_tpu.ops.operators import BSROperator
 
-    v_single = solve(BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float32, use_pallas=False))
+    v_single = solve(BSROperator.from_coo(rows, cols, vals, n, dtype=jnp.float32))
     v_shard = solve(ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, dtype=jnp.float32))
     assert abs(v_single - exact) < 1e-9, v_single
     assert abs(v_shard - exact) < 1e-9, v_shard
@@ -400,8 +400,7 @@ def test_precise_filtered_sharded_dia(mesh):
     over the row-partitioned DIA operator — the df64 Chebyshev chain runs
     the sharded df halo matvec inside lax.scan, the pv B-space engine and
     the jitted RR grams lower against the mesh, and the inverse-mapped
-    values land at the same f64-exact floor as single-device
-    (BASELINE.md round-4 head-to-head table)."""
+    values land at the same f64-exact floor as single-device."""
     from lanczos_tpu import filtered_lanczos
     from lanczos_tpu.parallel.sharded import ShardedDIAOperator
 

@@ -1,16 +1,16 @@
-"""The reference CI's valgrind "Memory Test" step, re-thought for JAX/TPU.
+"""The reference CI's valgrind "Memory Test" step, re-thought for JAX.
 
 The reference runs its whole suite under ASan + valgrind to prove no memory
 misbehavior (reference test/CMakeLists.txt:3; .github/workflows/ci.yml
 "Memory Test").  The JAX-world failure modes worth the same treatment are
 (1) HIDDEN host<->device transfers — an implicit sync inside an engine loop
-silently serializes a TPU and is invisible in tests that only check values —
+silently serializes the device and is invisible in tests that only check values —
 and (2) comm-structure drift on the sharded path — an operator change that
 silently replaces the ring ppermute halo with a full all_gather would still
-pass every value test while multiplying ICI traffic by n/boundary.
+pass every value test while multiplying interconnect traffic by n/boundary.
 
 (1) is locked with ``jax.transfer_guard_device_to_host("disallow")``:
-implicit device->host pulls (the hidden syncs that stall a TPU) raise, while
+implicit device->host pulls (the hidden syncs that stall a device) raise, while
 the engines' *explicit* boundary syncs (batched ``jax.device_get`` at
 restart edges) stay legal — exactly the contract the docstrings promise.
 (Host->device scalar uploads — eps/offset/k_limit as dynamic jit operands —
@@ -151,7 +151,7 @@ def _collectives(fn, *args):
 def test_dia_ring_halo_comm_structure(mesh):
     """Ring DIA matvec: exactly TWO ppermutes (left+right halo), no
     all_gather, and each halo moves only max|offset| elements per shard —
-    the comm-volume contract BASELINE.md's scaling stand-in cites."""
+    the comm-volume contract of the ring halo."""
     n = 1024
     op = ShardedDIAOperator.from_diagonals(
         [-1, 1], [np.full(n, -1.0), np.full(n, -1.0)], n, mesh=mesh

@@ -210,14 +210,15 @@ def test_extremal_eigvals_host(backend, find_maximum):
 def test_native_build_rebuilds_on_stale_so():
     """native/build.py: a source newer than the .so triggers a real g++
     rebuild (the cached path is what every other test exercises); build=False
-    never compiles but returns an existing library."""
+    never compiles but returns an up-to-date library."""
     import os
     import time as _time
 
     from lanczos_tpu.native import build as nb
     from lanczos_tpu.native import host_kernels as hk
 
-    assert nb.shared_object_path(build=False) is not None  # cached path
+    built = nb.shared_object_path()
+    assert built is not None and nb.shared_object_path(build=False) == built  # cached path
     # Make the source look newer than the .so -> forces the compile branch.
     now = _time.time()
     os.utime(nb._SRC, (now, now))
@@ -229,6 +230,30 @@ def test_native_build_rebuilds_on_stale_so():
 
     vals, vecs = hk.tridiagonal_eigh(np.array([2.0, 2.0]), np.array([-1.0]))
     np.testing.assert_allclose(np.sort(vals), [1.0, 3.0], atol=1e-12)
+
+
+def test_native_library_keyed_on_source_hash(monkeypatch, tmp_path):
+    """A library built from other source bytes is never picked up: the file
+    name carries the source hash, so an edited source (or a stale library
+    copied in from another machine) means a new name and a fresh build."""
+    import os
+    import shutil
+
+    from lanczos_tpu.native import build as nb
+
+    own = nb.shared_object_path()
+    assert own is not None and os.path.basename(own).startswith("_host_kernels-")
+    src = tmp_path / "host_kernels.cpp"
+    shutil.copy(nb._SRC, src)
+    with open(src, "a") as f:
+        f.write("\n// edited\n")
+    monkeypatch.setattr(nb, "_SRC", str(src))
+    monkeypatch.setattr(nb, "_DIR", str(tmp_path))
+    assert nb._so_path() != os.path.join(str(tmp_path), os.path.basename(own))
+    shutil.copy(own, os.path.join(str(tmp_path), os.path.basename(own)))  # stale library
+    assert nb.shared_object_path(build=False) is None
+    rebuilt = nb.shared_object_path()
+    assert rebuilt == nb._so_path() and os.path.exists(rebuilt)
 
 
 def test_native_bisect_degenerate_cluster_orthonormal():

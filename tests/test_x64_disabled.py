@@ -1,9 +1,9 @@
 """The x64-DISABLED runtime paths, locked in CI.
 
-The production TPU runtime has jax_enable_x64 OFF, where a traced f64 is
-SILENTLY truncated to f32 — the bug class that bit three separate times on
-chip (ScaledOperator's shift words, api.evolve's initial state, the
-Chebyshev coefficient splits; see CLAUDE.md).  The suite otherwise runs
+JAX's default runtime has jax_enable_x64 OFF, where a traced f64 is
+SILENTLY truncated to f32 — the bug class that bit three separate times
+(ScaledOperator's shift words, api.evolve's initial state, the
+Chebyshev coefficient splits).  The suite otherwise runs
 with x64 ON (conftest), so those host-split code paths were only ever
 exercised on real hardware.  This test runs the precise paths in a FRESH
 interpreter with x64 off and asserts they still reach df64-grade accuracy

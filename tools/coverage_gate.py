@@ -95,7 +95,7 @@ def main() -> int:
         import tempfile
 
         cov_dir = tempfile.mkdtemp(prefix="lt_cov_mp_")
-        os.environ["LANCZOS_TPU_COV_DUMP"] = cov_dir
+        os.environ["LT_COV_DUMP"] = cov_dir
 
         import pytest
 
